@@ -1,0 +1,44 @@
+"""topk_rec_torch — the PyTorch/CUDA port of ``topk_rec_tpu`` for one NVIDIA H100.
+
+The JAX package ``topk_rec_tpu`` stays the reference; this package is held
+against it by the ``tests/test_torch_*.py`` parity tests. Its first slice is
+the serving path: ``evaluate`` and ``recommend`` over exported
+``final-U/V/B.dat`` tables, with the fused score + seen-mask + top-k kernel
+(``ops/topk_fused.py``, CUDA source in ``csrc/topk_fused.cu``) in place of
+the Pallas kernel ``topk_rec_tpu/ops/topk_pallas.py:119``.
+
+Layout:
+  device.py   device resolution and fp32 matmul settings
+  ops/        the fused top-k kernel, its plain twin, bitmap helpers
+  eval/       on-device evaluation (counterpart of topk_rec_tpu/eval)
+  serving.py  TopKServer (counterpart of topk_rec_tpu/serving.py)
+  interop.py  JAX-package parameters -> the port's tensors
+  cli.py      ``evaluate`` / ``recommend`` (counterpart of topk_rec_tpu/cli.py)
+
+The attribute map below is lazy, as in ``topk_rec_tpu/__init__.py:24-43``:
+``import topk_rec_torch`` loads no kernel and no torch module beyond itself.
+The port imports only ``topk_rec_tpu.data``, ``.config``, ``.utils`` and
+``.native`` from the JAX package, which are jax-free.
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "TopKServer": "topk_rec_torch.serving",
+    "DeviceEvaluator": "topk_rec_torch.eval.device",
+    "evaluate_scores_device": "topk_rec_torch.eval.device",
+    "fused_score_topk": "topk_rec_torch.ops.topk_fused",
+    "from_jax_params": "topk_rec_torch.interop",
+    "resolve_device": "topk_rec_torch.device",
+}
+
+__all__ = list(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module = importlib.import_module(_LAZY[name])
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

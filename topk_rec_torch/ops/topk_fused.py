@@ -1,0 +1,254 @@
+"""K1: fused U·Vᵀ + bias + seen-mask + exact top-k (counterpart of
+``topk_rec_tpu/ops/topk_pallas.py``).
+
+``fused_score_topk`` launches the hand-written CUDA kernel
+(``csrc/topk_fused.cu``, built by ``ops/_build.py``) for CUDA tensors and
+raises if it cannot be built or launched. For CPU tensors it takes its
+plain twin ``fused_score_topk_plain``, which is also what the kernel is
+checked against on the card. There is no fallback from a CUDA tensor to
+the twin.
+
+Unlike the TPU kernel, which reads an int8 [rows x items] mask expanded by
+``expand_seen_mask`` (topk_pallas.py:599-614), K1 reads the packed
+exclusion bitmap that the callers already hold: bit ``i & 31`` of word
+``i >> 5`` (little-endian, ``topk_rec_tpu/data/dataset.py:38-47``), held as
+an ``int32`` tensor with the same bits as the uint32 words (torch has no
+shifts on uint32 on the CPU; ``(w >> s) & 1`` is right under the
+arithmetic shift). Items at or past ``n_items`` are never returned, so
+padding bits need not be set.
+
+Result contract (topk_pallas.py:492-528): values descending, lowest item
+index first among equal values (``lax.top_k``'s order); slots past the
+number of unexcluded items hold ``(NEG_INF, -1)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+NEG_INF = float(np.finfo(np.float32).min)  # topk_pallas.py:84
+
+
+def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row top-k in ``lax.top_k`` order: value descending, lowest index
+    first among ties (``torch.topk`` does not promise the tie order)."""
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def bitmap_tensor(words: np.ndarray, device) -> torch.Tensor:
+    """uint32 bit words (numpy) -> int32 tensor with the same bits."""
+    arr = np.ascontiguousarray(words)
+    if arr.dtype != np.uint32 and arr.dtype != np.int32:
+        raise TypeError(f"bitmap words must be uint32/int32, got {arr.dtype}")
+    return torch.from_numpy(arr.view(np.int32)).to(device)
+
+
+def expand_seen_mask(packed: torch.Tensor, n_cand: int) -> torch.Tensor:
+    """Unpack int32 bit words [rows, ceil(n_cand/32)] into int8 [rows, n_cand].
+
+    Counterpart of topk_pallas.py:599-614 (repeat + shift, no gathers).
+    """
+    if packed.dtype != torch.int32:
+        raise TypeError(f"packed bitmap must be int32, got {packed.dtype}")
+    shift = torch.arange(32, dtype=torch.int32, device=packed.device)
+    bits = (packed.unsqueeze(-1) >> shift) & 1
+    return bits.reshape(packed.shape[0], -1)[:, :n_cand].to(torch.int8)
+
+
+def pack_mask(mask: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`expand_seen_mask`: bool/int [rows, n] -> int32
+    words [rows, ceil(n/32)], bit ``c & 31`` of word ``c >> 5``."""
+    rows, n = mask.shape
+    n_words = (n + 31) // 32
+    bits = torch.zeros((rows, n_words * 32), dtype=torch.int64,
+                       device=mask.device)
+    bits[:, :n] = (mask != 0).to(torch.int64)
+    weights = torch.ones(32, dtype=torch.int64, device=mask.device) << \
+        torch.arange(32, dtype=torch.int64, device=mask.device)
+    words = (bits.view(rows, n_words, 32) * weights).sum(-1)
+    # bit 31 set -> the int32 with the same bits is negative
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    return words.to(torch.int32)
+
+
+def pack_candidate_bitmap(
+    seen_bitmap: np.ndarray, cand_item_ids: np.ndarray
+) -> np.ndarray:
+    """Re-pack the full-item-space seen bitmap into candidate space.
+
+    Carried over from topk_pallas.py:617-653 (host NumPy; its home module
+    imports jax): out bit c of user u = seen bit ``cand_item_ids[c]``,
+    processed in user-row chunks with ``np.packbits``.
+    """
+    cand = np.asarray(cand_item_ids, dtype=np.int64)
+    n_users = seen_bitmap.shape[0]
+    n_cand = cand.shape[0]
+    n_words = (n_cand + 31) // 32
+    pad = n_words * 32 - n_cand
+    word_idx = cand >> 5
+    shift = (cand & 31).astype(np.uint32)
+    out = np.empty((n_users, n_words), dtype=np.uint32)
+    chunk = max(1, (1 << 26) // max(1, n_cand))  # ~256MB working set
+    for start in range(0, n_users, chunk):
+        stop = min(start + chunk, n_users)
+        bits = (
+            (seen_bitmap[start:stop, word_idx] >> shift) & 1
+        ).astype(np.uint8)
+        if pad:
+            bits = np.pad(bits, ((0, 0), (0, pad)))
+        packed = np.ascontiguousarray(
+            np.packbits(bits, axis=1, bitorder="little")
+        )
+        out[start:stop] = packed.view("<u4")
+    return out
+
+
+def _check_inputs(U, V, bias, excl_bits, k):
+    if U.dim() != 2 or V.dim() != 2 or U.shape[1] != V.shape[1]:
+        raise ValueError(
+            f"U [n_u, d] and V [n_i, d] must agree on d: {tuple(U.shape)} "
+            f"vs {tuple(V.shape)}"
+        )
+    n_u, n_i = U.shape[0], V.shape[0]
+    if not 1 <= k <= 128:
+        raise ValueError(f"k must be in [1, 128], got {k}")
+    if excl_bits.dtype != torch.int32 or tuple(excl_bits.shape) != (
+        n_u, (n_i + 31) // 32
+    ):
+        raise ValueError(
+            f"excl_bits must be int32 [{n_u}, {(n_i + 31) // 32}], got "
+            f"{excl_bits.dtype} {tuple(excl_bits.shape)}"
+        )
+    if bias is not None and bias.numel() != n_i:
+        raise ValueError(f"bias must have {n_i} entries, got {bias.numel()}")
+    for t in (U, V, excl_bits) + (() if bias is None else (bias,)):
+        if t.device != U.device:
+            raise ValueError("U, V, bias and excl_bits must share a device")
+        if t.dtype not in (torch.float32, torch.bfloat16, torch.int32):
+            raise TypeError(f"unsupported dtype {t.dtype}")
+
+
+def _matmul_inputs(U, V, exact_matmul):
+    """fp32 for the exact mode unless both tables are bf16 already (the
+    widened bf16 values are the same numbers); bf16 for the serving mode."""
+    if not exact_matmul or (U.dtype == V.dtype == torch.bfloat16):
+        return U.to(torch.bfloat16), V.to(torch.bfloat16)
+    return U.float(), V.float()
+
+
+def fused_score_topk_plain(
+    U: torch.Tensor,
+    V: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    excl_bits: torch.Tensor,
+    k: int,
+    exact_matmul: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of :func:`fused_score_topk`, same contract.
+
+    Materializes the [n_u, n_i] score matrix; fp32 accumulation (TF32 off,
+    ``device.set_fp32_matmul``) on fp32 or bf16-rounded inputs.
+    """
+    _check_inputs(U, V, bias, excl_bits, k)
+    Ue, Ve = _matmul_inputs(U, V, exact_matmul)
+    scores = Ue.float() @ Ve.float().T
+    if bias is not None:
+        scores = scores + bias.float().reshape(1, -1)
+    mask = expand_seen_mask(excl_bits, V.shape[0]) != 0
+    scores = scores.masked_fill(mask, NEG_INF)
+    vals, idx = topk_stable(scores, k)
+    idx = torch.where(mask.gather(1, idx), -1, idx)
+    short = k - vals.shape[1]  # k > n_items: pad with empty slots
+    if short > 0:
+        vals = torch.nn.functional.pad(vals, (0, short), value=NEG_INF)
+        idx = torch.nn.functional.pad(idx, (0, short), value=-1)
+    return vals.contiguous(), idx.to(torch.int32).contiguous()
+
+
+def _launch(U, V, bias, excl_bits, k, exact_matmul):
+    import ctypes
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    n_u, d = U.shape
+    n_i = V.shape[0]
+    if d > lib.tkr_topk_max_d():
+        raise ValueError(f"d = {d} exceeds the kernel's {lib.tkr_topk_max_d()}")
+    for name, t in (("U", U), ("V", V), ("excl_bits", excl_bits)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    Ue, Ve = _matmul_inputs(U, V, exact_matmul)
+    b = None if bias is None else bias.float().reshape(-1).contiguous()
+    dev = U.device
+    vals = torch.empty((n_u, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((n_u, k), dtype=torch.int32, device=dev)
+    if n_u == 0:
+        return vals, idx
+    # item splits only when the user rows alone leave SMs idle (small
+    # serving batches); a split is a whole number of kernel chunks
+    chunk = lib.tkr_topk_chunk()
+    n_chunks = -(-n_i // chunk)
+    row_blocks = -(-n_u // 8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_splits = max(1, min(32, n_chunks, -(-4 * sms // row_blocks)))
+    split_len = -(-n_chunks // n_splits) * chunk
+    n_splits = -(-n_i // split_len)
+    if n_splits > 1:
+        sv = torch.empty((n_u, n_splits, k), dtype=torch.float32, device=dev)
+        si = torch.empty((n_u, n_splits, k), dtype=torch.int32, device=dev)
+    else:
+        sv = si = None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        err = lib.tkr_topk_fused(
+            p(Ue.data_ptr()), p(Ve.data_ptr()),
+            p(None if b is None else b.data_ptr()), p(excl_bits.data_ptr()),
+            p(vals.data_ptr()), p(idx.data_ptr()),
+            p(None if sv is None else sv.data_ptr()),
+            p(None if si is None else si.data_ptr()),
+            n_u, n_i, d, k, excl_bits.shape[1], split_len, n_splits,
+            int(Ue.dtype == torch.bfloat16), p(stream),
+        )
+    check(err, "fused_score_topk kernel launch")
+    fused_score_topk.launches += 1
+    return vals, idx
+
+
+def fused_score_topk(
+    U: torch.Tensor,
+    V: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    excl_bits: torch.Tensor,
+    k: int,
+    exact_matmul: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k (values, indices) of U·Vᵀ + bias over unexcluded items.
+
+    Args:
+      U: [n_u, d] float32 or bfloat16 user rows.
+      V: [n_i, d] float32 or bfloat16 item rows.
+      bias: optional [n_i] float32 item bias.
+      excl_bits: int32 [n_u, ceil(n_i/32)] bit words; a set bit excludes.
+      k: results per row, 1..128.
+      exact_matmul: True = fp32 products (eval); False = bf16-rounded
+        inputs with fp32 accumulation (serving, the TPU's DEFAULT).
+
+    Returns (vals f32 [n_u, k], idx i32 [n_u, k]); empty slots hold
+    (NEG_INF, -1). CUDA tensors run K1 and count one launch in
+    ``fused_score_topk.launches``; CPU tensors run the plain twin.
+    """
+    if U.device.type == "cpu":
+        return fused_score_topk_plain(U, V, bias, excl_bits, k, exact_matmul)
+    if U.device.type != "cuda":
+        raise ValueError(f"unsupported device {U.device}")
+    _check_inputs(U, V, bias, excl_bits, k)
+    return _launch(U, V, bias, excl_bits, k, exact_matmul)
+
+
+fused_score_topk.launches = 0

@@ -1,0 +1,199 @@
+"""Serving surface: batched top-k recommendation queries on the device.
+
+Counterpart of ``topk_rec_tpu/serving.py``. ``TopKServer`` is an
+``nn.Module`` whose tables (U, V, bias, the per-user seen store) are
+registered buffers on one device. Two selection methods:
+
+* ``exact``  — U·Vᵀ + bias, seen items -> -inf, stable sort top-k;
+* ``kernel`` — the fused score + mask + top-k kernel K1
+  (``ops/topk_fused.py``), the counterpart of JAX's ``pallas``, which never
+  materializes the [batch, catalog] score matrix.
+
+Both run with bf16-rounded table inputs and fp32 accumulation, which is what
+the TPU's ``Precision.DEFAULT`` does (serving.py:66-68, 103-110), so the two
+methods rank the same numbers. JAX's ``approx`` and ``hybrid`` methods and
+the mesh-sharded server are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from topk_rec_tpu.data.dataset import Interactions
+
+from .device import resolve_device
+from .ops.topk_fused import (
+    NEG_INF,
+    bitmap_tensor,
+    expand_seen_mask,
+    fused_score_topk,
+    pack_mask,
+    topk_stable,
+)
+
+METHODS = ("exact", "kernel")
+
+
+def _lists_mask(seen_rows: torch.Tensor, n_items: int) -> torch.Tensor:
+    """Padded per-user item lists [B, D] (pad = n_items) -> bool [B, n_items]
+    (serving.py:48-58: the pad slot lands in a throwaway column)."""
+    b = seen_rows.shape[0]
+    mask = torch.zeros((b, n_items + 1), dtype=torch.bool,
+                       device=seen_rows.device)
+    mask.scatter_(1, seen_rows.long(), True)
+    return mask[:, :n_items]
+
+
+def _query(
+    user_emb: torch.Tensor,     # [B, dim] gathered user rows
+    V: torch.Tensor,            # [n_items, dim]
+    bias: Optional[torch.Tensor],
+    seen_rows: torch.Tensor,    # bitmap: [B, n_words] int32; lists: [B, D]
+    k: int,
+    method: str,
+    n_items: int,
+    seen_format: str = "bitmap",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One query batch (serving.py:37-86): (scores, item ids), -inf for
+    slots past the user's unseen items."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r} (choose from {METHODS})")
+    if method == "kernel":
+        words = (
+            pack_mask(_lists_mask(seen_rows, n_items))
+            if seen_format == "lists" else seen_rows
+        )
+        vals, idx = fused_score_topk(
+            user_emb, V, bias, words, k, exact_matmul=False
+        )
+        return torch.where(vals <= NEG_INF, -torch.inf, vals), idx
+    mask = (
+        _lists_mask(seen_rows, n_items)
+        if seen_format == "lists"
+        else expand_seen_mask(seen_rows, n_items) != 0
+    )
+    u = user_emb.to(torch.bfloat16).float()
+    v = V.to(torch.bfloat16).float()
+    scores = u @ v.T
+    if bias is not None:
+        scores = scores + bias[None, :]
+    vals, idx = topk_stable(scores.masked_fill(mask, -torch.inf), k)
+    return vals, idx.to(torch.int32)
+
+
+def _query_local(U, V, bias, seen, uid, k, method, n_items, seen_format):
+    """serving.py:276-282: gather the batch's user and seen rows, query."""
+    return _query(
+        U[uid], V, bias, seen[uid], k, method, n_items, seen_format
+    )
+
+
+class TopKServer(nn.Module):
+    """Holds one model's tables on a device and answers top-k queries."""
+
+    def __init__(
+        self,
+        U: np.ndarray,
+        V: np.ndarray,
+        bias: Optional[np.ndarray] = None,
+        interactions: Optional[Interactions] = None,
+        exclude_seen: bool = True,
+        mesh=None,
+        seen_format: str = "bitmap",
+        table_dtype: Optional[torch.dtype] = None,
+        device="cuda",
+    ):
+        """``table_dtype=torch.bfloat16`` stores U and V at half the memory;
+        scores are unchanged, since every method rounds its inputs to bf16
+        (the bias stays fp32). ``seen_format`` picks the per-user seen
+        store (serving.py:112-124): ``"bitmap"`` (int32 words, n_users x
+        n_items/8 bytes) or ``"lists"`` (padded sorted item lists,
+        n_users x max_degree x 4 bytes)."""
+        super().__init__()
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh-sharded serving is not ported to topk_rec_torch yet"
+            )
+        if seen_format not in ("bitmap", "lists"):
+            raise ValueError(f"unknown seen_format {seen_format!r}")
+        dev = resolve_device(device)
+        dt = torch.float32 if table_dtype is None else table_dtype
+
+        def table(a, dtype):
+            # a copy: the buffers never alias the caller's arrays
+            if not isinstance(a, torch.Tensor):
+                a = torch.tensor(np.asarray(a, dtype=np.float32))
+            else:
+                a = a.clone()
+            return a.to(device=dev, dtype=dtype).contiguous()
+
+        self.register_buffer("U", table(U, dt))
+        self.register_buffer("V", table(V, dt))
+        self.register_buffer(
+            "bias",
+            None if bias is None else table(bias, torch.float32).reshape(-1),
+        )
+        self.n_items = self.V.shape[0]
+        self.seen_format = seen_format
+        n_users = self.U.shape[0]
+        n_words = (self.n_items + 31) // 32
+        if exclude_seen and interactions is not None:
+            if seen_format == "lists":
+                indptr, flat = interactions.user_csr
+                deg = np.diff(indptr)
+                D = max(1, int(deg.max()))
+                lists = np.full((n_users, D), self.n_items, np.int32)
+                rows = np.repeat(np.arange(len(deg)), deg)
+                cols = np.arange(len(flat)) - np.repeat(indptr[:-1], deg)
+                lists[rows, cols] = flat
+                seen = torch.from_numpy(lists).to(dev)
+            else:
+                seen = bitmap_tensor(interactions.seen_bitmap, dev)
+        elif seen_format == "lists":
+            seen = torch.full((n_users, 1), self.n_items, dtype=torch.int32,
+                              device=dev)
+        else:
+            seen = torch.zeros((n_users, n_words), dtype=torch.int32,
+                               device=dev)
+        self.register_buffer("seen", seen)
+
+    @classmethod
+    def from_model(cls, model, exclude_seen: bool = True,
+                   device="cuda", table_dtype=None) -> "TopKServer":
+        """Serve a trained JAX-package model (``fue``/``fie``/``fib``)."""
+        from .interop import from_jax_params
+
+        U, V, bias = from_jax_params(model, device, table_dtype)
+        return cls(U, V, bias, model.inter, exclude_seen,
+                   table_dtype=table_dtype, device=device)
+
+    def recommend_async(
+        self,
+        user_ids,
+        k: int = 30,
+        method: str = "exact",
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Queue a query batch without synchronizing; returns device
+        tensors (serving.py:212-273)."""
+        uid = torch.as_tensor(np.asarray(user_ids, dtype=np.int64)).to(
+            self.U.device
+        )
+        return _query_local(
+            self.U, self.V, self.bias, self.seen, uid, k, method,
+            self.n_items, self.seen_format,
+        )
+
+    def recommend(
+        self,
+        user_ids,
+        k: int = 30,
+        method: str = "exact",
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k unseen items for a batch of users: numpy (scores [B, k],
+        item ids [B, k]); score -inf means fewer than k unseen items."""
+        vals, idx = self.recommend_async(user_ids, k, method)
+        return vals.cpu().numpy(), idx.cpu().numpy()
