@@ -6,19 +6,29 @@ Phases (each prints one result line; any failure raises and exits non-zero
 without the final ``ok`` line):
 
 1. identify the card (``nvidia-smi`` name and power limit, torch and CUDA);
-2. build the fused top-k kernel K1 from ``topk_rec_torch/csrc`` with nvcc;
+2. build the kernels K1 (fused top-k) and K2 (threshold count) from
+   ``topk_rec_torch/csrc`` with nvcc, one process per source;
 3. compare K1 with its plain PyTorch twin on the card, exact (fp32) and
    serving (bf16) mode, on ragged shapes, no bias, rows with fewer than k
    unseen items, an all-ties row, k = 1 and k = 128, and the full-width
    eval chunk (8,192 users x 10,380 items, d = 50, k = 30), with CUDA-event
    medians of both;
-4. drive the main path at the full MovieLens width through
+4. compare K2 with its twin in both modes (ragged, no bias, all ties, rows
+   with fewer than k unseen, t from the exact top-k so that ties sit at the
+   threshold), and time both at 256 and 8,192 users at full width;
+5. compare ``exact_topk_hybrid`` with K1 and K1's twin at 256 and 8,192
+   users, at the defaults and at settings that force repairs (k_extra = 0,
+   recall = 0.8, cap = 32), printing the repaired rows and its time;
+6. drive the main path at the full MovieLens width through
    ``topk_rec_torch.cli.main``: a generated fold of 69,878 users x 10,380
    items in the reference file formats with seeded ``final-U/V/B.dat``
    (d = 50); ``evaluate -sl im om`` with ``--engine kernel`` and ``torch``,
-   ``recommend -k 30`` with ``--method kernel`` and ``exact`` for 256 users.
-   K1's launch counter must rise in each kernel run; the engines must
-   agree, and the recommendations must match a float64 NumPy reference.
+   ``recommend -k 30`` with ``--method kernel``, ``exact``, ``hybrid`` and
+   ``approx`` for 256 users. K1's launch counter must rise in each kernel
+   run and K2's in the hybrid run; the engines must agree, the exact
+   methods' recommendations must match a float64 NumPy reference, and the
+   approx lists must be valid with a mean recall@30 of at least 0.9. Then
+   each method's served-batch time at 256 and 8,192 users.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -103,28 +113,36 @@ def compare_topk(got, want):
     return float(err.max().item()), mism
 
 
+def make_case(dev, n_u, n_i, d, seed, bias=True, ties=False):
+    """Seeded U, V, bias and packed exclusion words on ``dev``. Row 0 has
+    five unseen items (fewer than k); row 1 has none excluded; ``ties``
+    makes every score of row 0 equal."""
+    from topk_rec_torch.ops.topk_fused import pack_mask
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    U = torch.randn(n_u, d, generator=g)
+    V = torch.randn(n_i, d, generator=g)
+    if ties:
+        U[0] = 1.0
+        V[:] = 1.0
+    b = torch.randn(n_i, generator=g) if bias else None
+    mask = torch.rand(n_u, n_i, generator=g) < 0.2
+    mask[0, :] = True
+    mask[0, : min(5, n_i)] = False   # row 0: fewer than k unseen
+    mask[1, :] = False
+    return (U.to(dev), V.to(dev), None if b is None else b.to(dev),
+            pack_mask(mask).to(dev))
+
+
 def kernel_cases(dev):
     """Phase 3: K1 against its twin; returns (max_abs_err, ms, plain_ms)."""
     from topk_rec_torch.ops.topk_fused import (
         fused_score_topk,
         fused_score_topk_plain,
-        pack_mask,
     )
 
     def make(n_u, n_i, d, seed, bias=True, ties=False):
-        g = torch.Generator(device="cpu").manual_seed(seed)
-        U = torch.randn(n_u, d, generator=g)
-        V = torch.randn(n_i, d, generator=g)
-        if ties:
-            U[0] = 1.0
-            V[:] = 1.0
-        b = torch.randn(n_i, generator=g) if bias else None
-        mask = torch.rand(n_u, n_i, generator=g) < 0.2
-        mask[0, :] = True
-        mask[0, : min(5, n_i)] = False   # row 0: fewer than k unseen
-        mask[1, :] = False
-        return (U.to(dev), V.to(dev), None if b is None else b.to(dev),
-                pack_mask(mask).to(dev))
+        return make_case(dev, n_u, n_i, d, seed, bias, ties)
 
     cases = [  # (n_u, n_i, d, k, bias, ties)
         (37, 301, 13, 8, True, False),      # ragged, n_i % 32 != 0
@@ -164,6 +182,109 @@ def kernel_cases(dev):
                 fields.update(kernel_ms=f"{tk:.4f}", plain_ms=f"{tp:.4f}")
             phase("k1_vs_plain", **fields)
     return worst, times
+
+
+K2_CASES = [  # (n_u, n_i, d, k, bias, ties)
+    (37, 301, 13, 8, True, False),      # ragged, n_i % 32 != 0
+    (130, 1000, 50, 30, False, False),  # no bias
+    (16, 700, 2, 6, False, True),       # all-ties rows
+    (256, N_ITEMS, DIM, TOP_K, True, False),   # serving batch
+    (8192, N_ITEMS, DIM, TOP_K, True, False),  # full-width chunk
+]
+
+
+def k2_cases(dev):
+    """Phase 4: K2 against its twin in both modes, with t from the exact
+    top-k (ties at the threshold; t = NEG_INF on row 0, which has fewer
+    than k unseen items). A count may differ only by the number of
+    elements whose twin score lies within 1e-5·max(1, |s|) of t ± eps,
+    where the two summation orders can fall on either side.
+
+    Returns (largest count difference, {(n_u, mode): (ms, plain_ms)})."""
+    from topk_rec_torch.ops.topk_fused import (
+        fused_score_topk_plain,
+        masked_scores,
+    )
+    from topk_rec_torch.ops.topk_hybrid import (
+        count_vs_threshold,
+        count_vs_threshold_plain,
+    )
+
+    worst = 0
+    times = {}
+    for n_u, n_i, d, k, bias, ties in K2_CASES:
+        U, V, b, words = make_case(dev, n_u, n_i, d, seed=n_u * 11 + n_i,
+                                   bias=bias, ties=ties)
+        for exact in (True, False):
+            t = fused_score_topk_plain(U, V, b, words, k, exact)[0][:, k - 1]
+            t = t.contiguous()
+            got = count_vs_threshold(U, V, b, words, t, exact)
+            want = count_vs_threshold_plain(U, V, b, words, t, exact)
+            s = masked_scores(U, V, b, words, exact)
+            tc = t.unsqueeze(1)
+            eps = torch.maximum(tc.abs(), s.abs()) * 1e-4 + 1e-6
+            band = TOL * torch.clamp(s.abs(), min=1.0)
+            near = (((s - (tc + eps)).abs() <= band)
+                    | ((s - (tc - eps)).abs() <= band)).sum(1)
+            diff = torch.maximum((got[0] - want[0]).abs(),
+                                 (got[1] - want[1]).abs())
+            torch.cuda.synchronize()
+            if bool((diff > near).any()):
+                raise AssertionError(
+                    f"K2 counts differ beyond the borderline elements: "
+                    f"n_u={n_u} n_i={n_i} exact={exact}")
+            if bool((want[0] + want[1] < k).any()):
+                raise AssertionError("twin counts below the top-k size")
+            worst = max(worst, int(diff.max()))
+            mode = "fp32" if exact else "bf16"
+            fields = dict(n_u=n_u, n_i=n_i, d=d, k=k, mode=mode,
+                          max_count_diff=int(diff.max()),
+                          borderline=int(near.sum()),
+                          ninf_rows=int((t <= -3.0e38).sum()))
+            if n_i == N_ITEMS:
+                tk = cuda_median_ms(
+                    lambda: count_vs_threshold(U, V, b, words, t, exact))
+                tp = cuda_median_ms(
+                    lambda: count_vs_threshold_plain(U, V, b, words, t,
+                                                     exact))
+                times[(n_u, mode)] = (tk, tp)
+                fields.update(kernel_ms=f"{tk:.4f}", plain_ms=f"{tp:.4f}")
+            phase("k2_vs_plain", **fields)
+    return worst, times
+
+
+def hybrid_cases(dev):
+    """Phase 5: ``exact_topk_hybrid`` against K1 and K1's twin at the
+    serving batch and the eval chunk, at the defaults and at settings that
+    force repairs. Returns the largest value difference."""
+    from topk_rec_torch.ops.topk_fused import (
+        fused_score_topk,
+        fused_score_topk_plain,
+    )
+    from topk_rec_torch.ops.topk_hybrid import exact_topk_hybrid
+
+    worst = 0.0
+    settings = {"default": {},
+                "hostile": dict(k_extra=0, recall=0.8, cap=32)}
+    for n_u in (256, 8192):
+        U, V, b, words = make_case(dev, n_u, N_ITEMS, DIM, seed=n_u + 5)
+        for exact in (True, False):
+            k1 = fused_score_topk(U, V, b, words, TOP_K, exact)
+            plain = fused_score_topk_plain(U, V, b, words, TOP_K, exact)
+            for name, kw in settings.items():
+                hv, hi, n_bad = exact_topk_hybrid(
+                    U, V, b, words, TOP_K, exact_matmul=exact,
+                    with_stats=True, **kw)
+                err1, _ = compare_topk((hv, hi), k1)
+                err2, _ = compare_topk((hv, hi), plain)
+                worst = max(worst, err1, err2)
+                ms = cuda_median_ms(lambda: exact_topk_hybrid(
+                    U, V, b, words, TOP_K, exact_matmul=exact, **kw),
+                    reps=7, warmup=2)
+                phase("hybrid_vs_exact", n_u=n_u, mode="fp32" if exact
+                      else "bf16", settings=name, n_bad=n_bad,
+                      max_abs_err=max(err1, err2), hybrid_ms=f"{ms:.4f}")
+    return worst
 
 
 def write_dat(path, mat):
@@ -256,8 +377,10 @@ def parse_recs(lines):
 
 
 def main_path(dev, root):
-    """Phase 4: evaluate and recommend at full width through the CLI."""
+    """Phase 6: evaluate and recommend at full width through the CLI.
+    Returns the K1 and K2 launches of the run."""
     from topk_rec_torch.ops.topk_fused import fused_score_topk
+    from topk_rec_torch.ops.topk_hybrid import count_vs_threshold
 
     t0 = time.perf_counter()
     U, V, B, pu, pi = write_fold(root)
@@ -298,18 +421,23 @@ def main_path(dev, root):
     with open(ufile, "w") as f:
         f.write("\n".join(f"u{u}" for u in users) + "\n")
     recs = {}
-    for method in ("kernel", "exact"):
+    count_launches = 0
+    for method in ("kernel", "exact", "hybrid", "approx"):
         fused_score_topk.launches = 0
+        count_vs_threshold.launches = 0
         lines, wall = run_cli(["recommend", "-d", data, "-m", model, "-f", "0",
                                "-k", str(TOP_K), "--method", method,
                                "--users-file", ufile, "--device", str(dev)])
         n = fused_score_topk.launches
-        if (method == "kernel") != (n > 0):
-            raise AssertionError(f"recommend --method {method}: {n} launches")
+        n2 = count_vs_threshold.launches
+        if (method == "kernel") != (n > 0) or (method == "hybrid") != (n2 > 0):
+            raise AssertionError(
+                f"recommend --method {method}: {n} K1, {n2} K2 launches")
         launches += n
+        count_launches += n2
         recs[method] = parse_recs(lines)
         phase("recommend", method=method, users=len(lines),
-              wall_s=f"{wall:.3f}", launches=n)
+              wall_s=f"{wall:.3f}", launches_k1=n, launches_k2=n2)
 
     # reference: float64 scores of the bf16-rounded tables, seen excluded
     Ub = torch.from_numpy(U[users]).bfloat16().double().numpy()
@@ -320,6 +448,7 @@ def main_path(dev, root):
     hit = row_of[pu] >= 0
     ref[row_of[pu[hit]], pi[hit]] = -np.inf
     worst = 0.0
+    recall = []
     for row, u in enumerate(users):
         order = np.argsort(-ref[row], kind="stable")[:TOP_K]
         want_items = [f"i{i}" for i in order]
@@ -329,7 +458,7 @@ def main_path(dev, root):
         gaps = np.abs(np.diff(want_vals)) > tol[1:]
         clear[1:] &= gaps
         clear[:-1] &= gaps
-        for method in ("kernel", "exact"):
+        for method in ("kernel", "exact", "hybrid"):
             items, vals = recs[method][f"u{u}"]
             # printed with six decimals: allow half a unit of the last
             err = np.abs(vals - want_vals)
@@ -340,9 +469,43 @@ def main_path(dev, root):
                    if clear[j] and items[j] != want_items[j]]
             if bad:
                 raise AssertionError(f"recommend {method} u{u}: items {bad}")
+        # approx: valid (unseen items, their own scores, descending) and
+        # close to the exact list
+        items, vals = recs["approx"][f"u{u}"]
+        ids = np.array([int(i[1:]) for i in items])
+        own = ref[row, ids]
+        if (len(items) != TOP_K or not np.all(np.isfinite(own))
+                or np.any(np.abs(vals - own) >
+                          TOL * np.maximum(1.0, np.abs(own)) + 5e-7)
+                or np.any(np.diff(vals) > 0)):
+            raise AssertionError(f"recommend approx u{u}: invalid list")
+        recall.append(len(set(items) & set(want_items)) / TOP_K)
+    mean_recall = float(np.mean(recall))
     phase("recommend_check", users=len(users), vs="float64 numpy",
-          max_abs_err=worst)
-    return launches
+          max_abs_err=worst, approx_recall_at_30=mean_recall)
+    if mean_recall < 0.9:
+        raise AssertionError(f"approx recall@30 {mean_recall} < 0.9")
+    serve_latency(root, dev)
+    return launches, count_launches
+
+
+def serve_latency(root, dev):
+    """CUDA-event medians of one served batch per method (the device time
+    of ``recommend_async``; ``hybrid`` includes its host sync) at 256 and
+    8,192 users, on the fold and tables as ``recommend`` loads them."""
+    from topk_rec_torch.cli import _load_fold, _read_model
+    from topk_rec_torch.serving import METHODS, TopKServer
+
+    inter, uids, iids = _load_fold(root, 0)
+    U, V, B = _read_model(os.path.join(root, "model"), uids, iids)
+    srv = TopKServer(U, V, B, inter, device=dev)
+    rng = np.random.default_rng(4)
+    for n in (256, 8192):
+        uids = rng.choice(N_USERS, n, replace=False)
+        ms = {m: cuda_median_ms(lambda: srv.recommend_async(uids, TOP_K, m))
+              for m in METHODS}
+        phase("serve_latency", users=n,
+              **{f"{m}_ms": f"{t:.4f}" for m, t in ms.items()})
 
 
 def main() -> int:
@@ -367,14 +530,17 @@ def main() -> int:
 
     max_err, times = kernel_cases(dev)
     tk, tp = times[(8192, "fp32")]
+    k2_err, k2_times = k2_cases(dev)
+    k2_ms, k2_plain_ms = k2_times[(256, "bf16")]  # recommend's shape
+    hybrid_cases(dev)
 
     root = tempfile.mkdtemp(prefix=".smoke_", dir=ROOT)
     try:
-        launches = main_path(dev, root)
+        launches, count_launches = main_path(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    if launches <= 0:
-        raise AssertionError("the main path never launched K1")
+    if launches <= 0 or count_launches <= 0:
+        raise AssertionError("the main path never launched K1 or K2")
 
     print(json.dumps({"kernels": [{
         "name": "topk_fused",
@@ -385,6 +551,15 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": tk,
         "plain_ms": tp,
+    }, {
+        "name": "topk_count",
+        "route": "cuda",
+        "source": "topk_rec_torch/csrc/topk_count.cu",
+        "replaces": "topk_rec_tpu/ops/topk_hybrid.py:55",
+        "launches": count_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

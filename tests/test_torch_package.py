@@ -15,6 +15,7 @@ from topk_rec_torch import cli as torch_cli
 from topk_rec_torch.device import resolve_device
 from topk_rec_torch.eval import device as tdev
 from topk_rec_torch.ops import topk_fused as tf
+from topk_rec_torch.ops import topk_hybrid as th
 from topk_rec_torch.serving import TopKServer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,6 +28,7 @@ def test_imports_without_jax():
         "sys.modules['jax'] = None\n"  # any jax import now raises
         "import topk_rec_torch, topk_rec_torch.cli, topk_rec_torch.serving\n"
         "import topk_rec_torch.eval.device, topk_rec_torch.ops.topk_fused\n"
+        "import topk_rec_torch.ops.topk_hybrid\n"
         "import topk_rec_torch.interop, topk_rec_torch.eval.protocol\n"
         "loaded = [m for m in sys.modules if m.startswith('jax')\n"
         "          and sys.modules[m] is not None]\n"
@@ -51,12 +53,14 @@ def test_no_jax_import_lines():
                                   if pat.match(line)]
     assert not offenders
     # the kernel sources ship with the package
-    assert os.path.exists(os.path.join(PKG, "csrc", "topk_fused.cu"))
+    for name in ("topk_fused.cu", "topk_count.cu", "score_tile.cuh"):
+        assert os.path.exists(os.path.join(PKG, "csrc", name))
 
 
 def test_lazy_package_attributes():
     assert topk_rec_torch.TopKServer is TopKServer
     assert topk_rec_torch.fused_score_topk is tf.fused_score_topk
+    assert topk_rec_torch.exact_topk_hybrid is th.exact_topk_hybrid
     with pytest.raises(AttributeError):
         topk_rec_torch.no_such_name
 
@@ -82,6 +86,7 @@ def test_cpu_tensors_never_count_launches():
     V = rng.normal(size=(40, 5)).astype(np.float32)
     seen = np.zeros((30, 2), np.uint32)
     tf.fused_score_topk.launches = 0
+    th.count_vs_threshold.launches = 0
     tf.fused_score_topk(torch.from_numpy(U), torch.from_numpy(V), None,
                         torch.zeros(30, 2, dtype=torch.int32), 5)
     tdev.evaluate_scores_device_full(
@@ -89,5 +94,7 @@ def test_cpu_tensors_never_count_launches():
         device="cpu",
     )
     srv = TopKServer(U, V, device="cpu")
-    srv.recommend(np.arange(4), k=3, method="kernel")
+    for method in ("kernel", "hybrid"):
+        srv.recommend(np.arange(4), k=3, method=method)
     assert tf.fused_score_topk.launches == 0
+    assert th.count_vs_threshold.launches == 0

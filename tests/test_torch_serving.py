@@ -6,7 +6,8 @@ both servers get bf16-rounded tables: the products are then exact in fp32
 and the two sides differ only in summation order. Values agree to rtol
 1e-5 / atol 1e-5 (a few ulps of ~10-magnitude scores); item ids must be
 equal on every finite slot, the scores being continuous and tie-free far
-above that noise.
+above that noise. The exact methods (``METHODS``) are held to JAX's
+``exact``; ``approx`` is held to validity and recall (``test_approx_*``).
 """
 
 import ml_dtypes
@@ -18,7 +19,8 @@ from topk_rec_tpu.serving import TopKServer as JaxServer
 from topk_rec_torch.interop import from_jax_params
 from topk_rec_torch.serving import TopKServer
 
-METHODS = ["exact", "kernel"]
+METHODS = ["exact", "kernel", "hybrid"]
+ALL_METHODS = ["exact", "approx", "kernel", "hybrid"]
 
 
 def _bf16(a):
@@ -70,7 +72,7 @@ def test_bf16_tables(small_inter, method):
                  jax_srv.recommend(users, k=10, method="exact"))
 
 
-@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("method", ALL_METHODS)
 def test_seen_items_never_served(small_inter, method):
     U, V, b = _tables(small_inter, 1, bias=False)
     srv = TopKServer(U, V, b, small_inter, device="cpu")
@@ -83,7 +85,7 @@ def test_seen_items_never_served(small_inter, method):
                 assert (int(u), int(item)) not in pos
 
 
-@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("method", ALL_METHODS)
 def test_recommend_async_matches_sync(small_inter, method):
     U, V, _ = _tables(small_inter, 9, dim=6)
     srv = TopKServer(U, V, None, small_inter, device="cpu")
@@ -113,9 +115,74 @@ def test_unsupported_options_raise(small_inter):
     with pytest.raises(NotImplementedError):
         TopKServer(U, V, b, small_inter, mesh=object(), device="cpu")
     srv = TopKServer(U, V, b, small_inter, device="cpu")
-    for method in ("approx", "hybrid", "pallas"):
-        with pytest.raises(ValueError, match="unknown method"):
-            srv.recommend(np.arange(2), k=3, method=method)
+    # JAX's name for the fused kernel; the port's is "kernel"
+    with pytest.raises(ValueError, match="unknown method"):
+        srv.recommend(np.arange(2), k=3, method="pallas")
+
+
+def _approx_valid_with_recall(got, U, V, b, inter, users, k):
+    """Served approx lists: each finite slot is an unseen item carrying its
+    own bf16-table score, values descend, and the mean recall@k against the
+    float64 exact list is at least 0.9."""
+    vals, idx = got
+    Ub = _bf16(U).astype(np.float64)
+    Vb = _bf16(V).astype(np.float64)
+    ref = Ub[users] @ Vb.T + (0.0 if b is None else b[None, :])
+    seen = set(zip(inter.seen_u.tolist(), inter.seen_i.tolist()))
+    recall = []
+    for row, u in enumerate(users):
+        for r, i in seen:
+            if r == u:
+                ref[row, i] = -np.inf
+        fin = np.isfinite(vals[row])
+        items = idx[row][fin]
+        assert all((int(u), int(i)) not in seen for i in items)
+        np.testing.assert_allclose(vals[row][fin], ref[row, items],
+                                   rtol=1e-5, atol=1e-5)
+        assert (np.diff(vals[row]) <= 0).all()
+        want = np.argsort(-ref[row], kind="stable")[:k]
+        want = want[np.isfinite(ref[row, want])]
+        recall.append(len(set(items) & set(want)) / max(1, len(want)))
+    assert np.mean(recall) >= 0.9
+
+
+@pytest.mark.parametrize("seen_format", ["bitmap", "lists"])
+def test_approx_valid_with_recall(small_inter, seen_format):
+    U, V, b = _tables(small_inter, 0)
+    users = np.array([0, 3, 5, 17, 21, 44, 44, 9])
+    srv = TopKServer(U, V, b, small_inter, seen_format=seen_format,
+                     device="cpu")
+    got = srv.recommend(users, k=10, method="approx")
+    _approx_valid_with_recall(got, U, V, b, small_inter, users, 10)
+
+
+def test_approx_bf16_tables(small_inter):
+    rng = np.random.default_rng(6)
+    U = rng.normal(size=(small_inter.n_users, 8)).astype(np.float32)
+    V = rng.normal(size=(small_inter.n_items, 8)).astype(np.float32)
+    srv = TopKServer(U, V, None, small_inter, table_dtype=torch.bfloat16,
+                     device="cpu")
+    users = np.array([0, 5, 17, 44])
+    got = srv.recommend(users, k=10, method="approx")
+    _approx_valid_with_recall(got, U, V, None, small_inter, users, 10)
+
+
+def test_large_catalog_approx_reduces_and_hybrid_stays_exact():
+    """3,000 items: the selector keeps 256 bins of 16 items at k = 10, so
+    approx may lose items, while hybrid still equals JAX's exact."""
+    from topk_rec_tpu.data.dataset import synthetic_interactions
+    from topk_rec_torch.ops.topk_hybrid import approx_bins
+
+    inter = synthetic_interactions(n_users=40, n_items=3000, n_pos=2000,
+                                   seed=3)
+    assert approx_bins(inter.n_items, 10, 0.95) == (256, 4)
+    U, V, b = _tables(inter, 8)
+    users = np.arange(0, 40, 3)
+    srv = TopKServer(U, V, b, inter, device="cpu")
+    _approx_valid_with_recall(srv.recommend(users, k=10, method="approx"),
+                              U, V, b, inter, users, 10)
+    want = JaxServer(U, V, b, inter).recommend(users, k=10, method="exact")
+    _assert_same(srv.recommend(users, k=10, method="hybrid"), want)
 
 
 def test_trained_bpr_through_from_jax_params(small_inter):

@@ -5,11 +5,16 @@ against it by the ``tests/test_torch_*.py`` parity tests. Its first slice is
 the serving path: ``evaluate`` and ``recommend`` over exported
 ``final-U/V/B.dat`` tables, with the fused score + seen-mask + top-k kernel
 (``ops/topk_fused.py``, CUDA source in ``csrc/topk_fused.cu``) in place of
-the Pallas kernel ``topk_rec_tpu/ops/topk_pallas.py:119``.
+the Pallas kernel ``topk_rec_tpu/ops/topk_pallas.py:119``. Its second slice
+adds the ``approx`` and exact ``hybrid`` serving methods, with the
+threshold-count kernel (``ops/topk_hybrid.py``, ``csrc/topk_count.cu``) in
+place of ``topk_rec_tpu/ops/topk_hybrid.py:55``.
 
 Layout:
   device.py   device resolution and fp32 matmul settings
-  ops/        the fused top-k kernel, its plain twin, bitmap helpers
+  ops/        kernels with their plain twins: topk_fused (K1, fused top-k,
+              bitmap helpers), topk_hybrid (K2, the threshold-count audit
+              of the exact hybrid top-k, and the approx selector)
   eval/       on-device evaluation (counterpart of topk_rec_tpu/eval)
   serving.py  TopKServer (counterpart of topk_rec_tpu/serving.py)
   interop.py  JAX-package parameters -> the port's tensors
@@ -28,6 +33,7 @@ _LAZY = {
     "DeviceEvaluator": "topk_rec_torch.eval.device",
     "evaluate_scores_device": "topk_rec_torch.eval.device",
     "fused_score_topk": "topk_rec_torch.ops.topk_fused",
+    "exact_topk_hybrid": "topk_rec_torch.ops.topk_hybrid",
     "from_jax_params": "topk_rec_torch.interop",
     "resolve_device": "topk_rec_torch.device",
 }

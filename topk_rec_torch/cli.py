@@ -4,13 +4,15 @@ Counterpart of ``topk_rec_tpu/cli.py:66-179, 494-675``, with the same
 flags plus ``--device`` (default ``cuda``; there is no silent fallback to
 the CPU). The backends are named for this package: ``--engine
 {torch,kernel}`` stands for JAX's ``{xla,pallas}`` and ``--method
-{exact,kernel}`` for ``{exact,pallas}``; both default to ``kernel``, the
-fused CUDA kernel. Folds and ``.dat`` files are read by the shared
-``topk_rec_tpu.data``, so the CSV lines match ``topk_rec_tpu.cli``.
+{exact,approx,kernel,hybrid}`` for ``{exact,approx,pallas,hybrid}``; both
+default to ``kernel``, the fused CUDA kernel. Folds and ``.dat`` files are
+read by the shared ``topk_rec_tpu.data``, so the CSV lines match
+``topk_rec_tpu.cli``.
 
 Usage:
   python -m topk_rec_torch.cli evaluate -d data -m embed/bpr -f 0 -sl im om
   python -m topk_rec_torch.cli recommend -d data -m embed/bpr -k 30 u1 u2
+  python -m topk_rec_torch.cli recommend ... --method hybrid u1 u2
 """
 
 from __future__ import annotations
@@ -181,7 +183,11 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("-m", "--model", required=True)
     pr.add_argument("-f", "--fold", type=int, default=0)
     pr.add_argument("-k", type=int, default=30)
-    pr.add_argument("--method", default="kernel", choices=("exact", "kernel"))
+    pr.add_argument("--method", default="kernel",
+                    choices=("exact", "approx", "kernel", "hybrid"),
+                    help="exact: matmul + stable sort; approx: approximate "
+                    "(recall ~0.95); kernel: the fused CUDA kernel; hybrid: "
+                    "approx repaired to exact by a count audit")
     pr.add_argument("--include-seen", action="store_true",
                     help="do not exclude train-seen items")
     pr.add_argument("--users-file", default=None,

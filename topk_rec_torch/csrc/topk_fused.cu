@@ -21,7 +21,8 @@
 //    stride of 36 floats keeps the float4 reads free of bank conflicts).
 //    Each thread accumulates kRows dot products with sequential fmaf over
 //    d in fp32; bf16 inputs are widened with __bfloat162float, so a bf16
-//    product is exact and only the summation rounds.
+//    product is exact and only the summation rounds. This tile loop lives
+//    in score_tile.cuh and is shared with K2 (topk_count.cu).
 //  * The seen mask is the packed bitmap itself: bit (i & 31) of word
 //    excl[u, i >> 5]. The int8 [rows x items] mask that the TPU kernel
 //    reads is never built. Items at or past n_i are never scored.
@@ -53,17 +54,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "score_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;           // threads per block = items per chunk
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;                // user rows per block
 constexpr int kBuf = 512;               // candidate buffer slots per row
-constexpr int kDTile = 32;              // V columns staged per tile
-constexpr int kVStride = 36;            // V tile row stride (floats); 36/4 odd
 constexpr int kMaxK = 128;
-constexpr int kMaxD = 1024;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -FLT_MAX;     // float32.min: excluded / empty slot
 
 static_assert(kRows % kWarps == 0 || kWarps % kRows == 0, "row/warp split");
@@ -73,17 +69,8 @@ __device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__host__ __device__ inline int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
 __host__ __device__ inline size_t pass1_smem_bytes(int k, int dpad) {
-  return sizeof(float) * ((size_t)kRows * dpad + (size_t)kThreads * kVStride) +
+  return sizeof(float) * tile_smem_floats(dpad) +
          (sizeof(float) + sizeof(int)) *
              ((size_t)kRows * (k + kBuf) + (size_t)kWarps * k) +
          sizeof(int) * 2 * kRows;
@@ -167,12 +154,7 @@ __global__ void __launch_bounds__(kThreads)
   const int item_begin = split * split_len;
   const int item_end = min(n_i, item_begin + split_len);
 
-  for (int e = tid; e < kRows * dpad; e += kThreads) {
-    const int r = e / dpad;
-    const int j = e - r * dpad;
-    const int u = row0 + r;
-    Us[e] = (u < n_u && j < d) ? to_f32(U[(size_t)u * d + j]) : 0.f;
-  }
+  stage_rows(U, Us, row0, n_u, d, dpad);
   for (int e = tid; e < kRows * cs; e += kThreads) {
     cand_v[e] = -INFINITY;
     cand_i[e] = INT_MAX;
@@ -185,34 +167,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int c0 = item_begin; c0 < item_end; c0 += kThreads) {
     float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int j0 = 0; j0 < d; j0 += kDTile) {
-      const int dt = min(kDTile, d - j0);
-      for (int t = warp; t < kThreads; t += kWarps) {
-        const int item = c0 + t;
-        Vs[t * kVStride + lane] =
-            (item < item_end && lane < dt)
-                ? to_f32(V[(size_t)item * d + j0 + lane])
-                : 0.f;
-      }
-      __syncthreads();
-      const float4* v4 = reinterpret_cast<const float4*>(Vs + tid * kVStride);
-      const int nq = (dt + 3) >> 2;
-      for (int q = 0; q < nq; ++q) {
-        const float4 v = v4[q];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 u =
-              *reinterpret_cast<const float4*>(Us + r * dpad + j0 + 4 * q);
-          acc[r] = fmaf(u.x, v.x, acc[r]);
-          acc[r] = fmaf(u.y, v.y, acc[r]);
-          acc[r] = fmaf(u.z, v.z, acc[r]);
-          acc[r] = fmaf(u.w, v.w, acc[r]);
-        }
-      }
-      __syncthreads();
-    }
+    score_chunk(V, Us, Vs, c0, item_end, d, dpad, acc);
 
     const int item = c0 + tid;
     if (item < item_end) {
@@ -221,9 +176,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int r = 0; r < kRows; ++r) {
         const int u = row0 + r;
         if (u >= n_u) continue;
-        const uint32_t w =
-            static_cast<uint32_t>(excl[(size_t)u * n_words + (item >> 5)]);
-        if ((w >> (item & 31)) & 1u) continue;
+        if (excluded(excl, u, n_words, item)) continue;
         const float s = acc[r] + b;
         if (s != s) continue;  // NaN scores are never returned
         if (ntop[r] == k &&

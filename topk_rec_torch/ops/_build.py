@@ -1,13 +1,16 @@
 """Build and load the port's CUDA kernels: nvcc into a plain-C shared library.
 
-The sources under ``topk_rec_torch/csrc`` are compiled at first use with
+The sources under ``topk_rec_torch/csrc`` are compiled at first use, one
+``nvcc`` per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o <build>/<hash>/libtkr_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu
 
-and loaded with ``ctypes``. The build directory is keyed on a hash of the
-sources and the flags, so an edited source is rebuilt and an unchanged one
-is reused. The library's entry points take pointers and the stream as
+then linked with ``nvcc ... -shared`` into one
+``<build>/<hash>/libtkr_kernels.so``, which is loaded with ``ctypes``. The
+build directory is keyed on a hash of the sources (``*.cu`` and ``*.cuh``)
+and the flags, so an edited source is rebuilt and an unchanged one is
+reused. The library's entry points take pointers and the stream as
 ``c_void_p`` and return a ``cudaError_t`` value, which the wrappers turn
 into an exception. Nothing here runs at import time: the CPU tests import
 every module, and this machine class has no ``nvcc``.
@@ -31,7 +34,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -74,17 +77,38 @@ def _build() -> str:
         return so
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            "nvcc failed building topk_rec_torch kernels:\n"
-            + " ".join(cmd) + "\n" + res.stderr[-4000:]
-        )
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    nvcc = _nvcc()
+    # a private directory: a concurrent build never sees these objects
+    work = tempfile.mkdtemp(dir=out_dir)
+    try:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            )))
+        failed = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(" ".join(cmd) + "\n" + err[-4000:])
+        tmp = os.path.join(work, "libtkr_kernels.so")
+        if not failed:
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                   *(obj for _, obj, _ in jobs)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                failed.append(" ".join(cmd) + "\n" + res.stderr[-4000:])
+        if failed:
+            raise RuntimeError(
+                "nvcc failed building topk_rec_torch kernels:\n"
+                + "\n".join(failed)
+            )
+        os.replace(tmp, so)  # atomic: a loader never sees half a file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return so
 
@@ -98,6 +122,8 @@ def load_library() -> ctypes.CDLL:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.tkr_topk_fused.argtypes = [vp] * 8 + [ci] * 8 + [vp]
             lib.tkr_topk_fused.restype = ci
+            lib.tkr_count_vs_threshold.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+            lib.tkr_count_vs_threshold.restype = ci
             for name in ("tkr_topk_max_d", "tkr_topk_chunk"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = ci

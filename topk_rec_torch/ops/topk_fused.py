@@ -107,14 +107,16 @@ def pack_candidate_bitmap(
     return out
 
 
-def _check_inputs(U, V, bias, excl_bits, k):
+def _check_inputs(U, V, bias, excl_bits, k=None):
+    """Shapes, dtypes and devices of the kernels' inputs; ``k`` is checked
+    against K1's limit unless it is None."""
     if U.dim() != 2 or V.dim() != 2 or U.shape[1] != V.shape[1]:
         raise ValueError(
             f"U [n_u, d] and V [n_i, d] must agree on d: {tuple(U.shape)} "
             f"vs {tuple(V.shape)}"
         )
     n_u, n_i = U.shape[0], V.shape[0]
-    if not 1 <= k <= 128:
+    if k is not None and not 1 <= k <= 128:
         raise ValueError(f"k must be in [1, 128], got {k}")
     if excl_bits.dtype != torch.int32 or tuple(excl_bits.shape) != (
         n_u, (n_i + 31) // 32
@@ -154,19 +156,65 @@ def fused_score_topk_plain(
     ``device.set_fp32_matmul``) on fp32 or bf16-rounded inputs.
     """
     _check_inputs(U, V, bias, excl_bits, k)
+    scores = masked_scores(U, V, bias, excl_bits, exact_matmul)
+    vals, idx = pad_k(*topk_stable(scores, k), k)
+    return vals.contiguous(), drop_excluded(idx, excl_bits)
+
+
+def masked_scores(U, V, bias, excl_bits, exact_matmul):
+    """U·Vᵀ + bias [n_u, n_i] in fp32, excluded items at NEG_INF."""
     Ue, Ve = _matmul_inputs(U, V, exact_matmul)
     scores = Ue.float() @ Ve.float().T
     if bias is not None:
         scores = scores + bias.float().reshape(1, -1)
     mask = expand_seen_mask(excl_bits, V.shape[0]) != 0
-    scores = scores.masked_fill(mask, NEG_INF)
-    vals, idx = topk_stable(scores, k)
-    idx = torch.where(mask.gather(1, idx), -1, idx)
-    short = k - vals.shape[1]  # k > n_items: pad with empty slots
+    return scores.masked_fill(mask, NEG_INF)
+
+
+def pad_k(vals, idx, k):
+    """Pad [rows, < k] results (k > n_items) to k slots of (NEG_INF, -1)."""
+    short = k - vals.shape[1]
     if short > 0:
         vals = torch.nn.functional.pad(vals, (0, short), value=NEG_INF)
         idx = torch.nn.functional.pad(idx, (0, short), value=-1)
-    return vals.contiguous(), idx.to(torch.int32).contiguous()
+    return vals, idx
+
+
+def drop_excluded(idx, excl_bits):
+    """Item indices [rows, k] -> int32, with -1 for every excluded item
+    (an empty slot, whose value is NEG_INF) and for -1 itself."""
+    live = idx >= 0
+    safe = torch.where(live, idx, 0).long()
+    word = excl_bits.gather(1, safe >> 5)
+    hit = ((word >> (safe & 31)) & 1) != 0
+    return torch.where(live & ~hit, idx, -1).to(torch.int32).contiguous()
+
+
+def item_splits(n_u: int, n_i: int, chunk: int, dev, max_splits: int):
+    """(split_len, n_splits) for a kernel whose blocks take 8 user rows and
+    walk the items in chunks of ``chunk``: the catalog is split only when
+    the user rows alone leave SMs idle (small serving batches), and a split
+    is a whole number of chunks."""
+    n_chunks = -(-n_i // chunk)
+    row_blocks = -(-n_u // 8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_splits = max(1, min(max_splits, n_chunks, -(-4 * sms // row_blocks)))
+    split_len = -(-n_chunks // n_splits) * chunk
+    return split_len, -(-n_i // split_len)
+
+
+def kernel_operands(lib, U, V, bias, excl_bits, exact_matmul):
+    """The checks a kernel needs beyond :func:`_check_inputs`, then its
+    operands: U and V in the matmul mode's type, the fp32 bias or None."""
+    d = U.shape[1]
+    if d > lib.tkr_topk_max_d():
+        raise ValueError(f"d = {d} exceeds the kernel's {lib.tkr_topk_max_d()}")
+    for name, t in (("U", U), ("V", V), ("excl_bits", excl_bits)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    Ue, Ve = _matmul_inputs(U, V, exact_matmul)
+    b = None if bias is None else bias.float().reshape(-1).contiguous()
+    return Ue, Ve, b
 
 
 def _launch(U, V, bias, excl_bits, k, exact_matmul):
@@ -177,27 +225,14 @@ def _launch(U, V, bias, excl_bits, k, exact_matmul):
     lib = load_library()
     n_u, d = U.shape
     n_i = V.shape[0]
-    if d > lib.tkr_topk_max_d():
-        raise ValueError(f"d = {d} exceeds the kernel's {lib.tkr_topk_max_d()}")
-    for name, t in (("U", U), ("V", V), ("excl_bits", excl_bits)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    Ue, Ve = _matmul_inputs(U, V, exact_matmul)
-    b = None if bias is None else bias.float().reshape(-1).contiguous()
+    Ue, Ve, b = kernel_operands(lib, U, V, bias, excl_bits, exact_matmul)
     dev = U.device
     vals = torch.empty((n_u, k), dtype=torch.float32, device=dev)
     idx = torch.empty((n_u, k), dtype=torch.int32, device=dev)
     if n_u == 0:
         return vals, idx
-    # item splits only when the user rows alone leave SMs idle (small
-    # serving batches); a split is a whole number of kernel chunks
-    chunk = lib.tkr_topk_chunk()
-    n_chunks = -(-n_i // chunk)
-    row_blocks = -(-n_u // 8)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits = max(1, min(32, n_chunks, -(-4 * sms // row_blocks)))
-    split_len = -(-n_chunks // n_splits) * chunk
-    n_splits = -(-n_i // split_len)
+    # the merge pass takes at most 32 splits, one per lane
+    split_len, n_splits = item_splits(n_u, n_i, lib.tkr_topk_chunk(), dev, 32)
     if n_splits > 1:
         sv = torch.empty((n_u, n_splits, k), dtype=torch.float32, device=dev)
         si = torch.empty((n_u, n_splits, k), dtype=torch.int32, device=dev)

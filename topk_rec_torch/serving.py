@@ -2,17 +2,22 @@
 
 Counterpart of ``topk_rec_tpu/serving.py``. ``TopKServer`` is an
 ``nn.Module`` whose tables (U, V, bias, the per-user seen store) are
-registered buffers on one device. Two selection methods:
+registered buffers on one device. Four selection methods:
 
 * ``exact``  — U·Vᵀ + bias, seen items -> -inf, stable sort top-k;
+* ``approx`` — the same scores through ``approx_topk``, the counterpart of
+  ``jax.lax.approx_max_k`` (recall about 0.95; not exact);
 * ``kernel`` — the fused score + mask + top-k kernel K1
   (``ops/topk_fused.py``), the counterpart of JAX's ``pallas``, which never
-  materializes the [batch, catalog] score matrix.
+  materializes the [batch, catalog] score matrix;
+* ``hybrid`` — ``exact_topk_hybrid`` (``ops/topk_hybrid.py``): the approx
+  selector made exact by the threshold-count audit K2 and a re-rank of the
+  rows that fail it.
 
-Both run with bf16-rounded table inputs and fp32 accumulation, which is what
-the TPU's ``Precision.DEFAULT`` does (serving.py:66-68, 103-110), so the two
-methods rank the same numbers. JAX's ``approx`` and ``hybrid`` methods and
-the mesh-sharded server are not ported yet (ROADMAP.md).
+All run with bf16-rounded table inputs and fp32 accumulation, which is what
+the TPU's ``Precision.DEFAULT`` does (serving.py:66-68, 103-110), so the
+methods rank the same numbers. The mesh-sharded server is not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ from .ops.topk_fused import (
     pack_mask,
     topk_stable,
 )
+from .ops.topk_hybrid import approx_topk, exact_topk_hybrid
 
-METHODS = ("exact", "kernel")
+METHODS = ("exact", "approx", "kernel", "hybrid")
 
 
 def _lists_mask(seen_rows: torch.Tensor, n_items: int) -> torch.Tensor:
@@ -62,14 +68,13 @@ def _query(
     slots past the user's unseen items."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r} (choose from {METHODS})")
-    if method == "kernel":
+    if method in ("kernel", "hybrid"):
         words = (
             pack_mask(_lists_mask(seen_rows, n_items))
             if seen_format == "lists" else seen_rows
         )
-        vals, idx = fused_score_topk(
-            user_emb, V, bias, words, k, exact_matmul=False
-        )
+        select = fused_score_topk if method == "kernel" else exact_topk_hybrid
+        vals, idx = select(user_emb, V, bias, words, k, exact_matmul=False)
         return torch.where(vals <= NEG_INF, -torch.inf, vals), idx
     mask = (
         _lists_mask(seen_rows, n_items)
@@ -81,7 +86,9 @@ def _query(
     scores = u @ v.T
     if bias is not None:
         scores = scores + bias[None, :]
-    vals, idx = topk_stable(scores.masked_fill(mask, -torch.inf), k)
+    scores = scores.masked_fill(mask, -torch.inf)
+    select = approx_topk if method == "approx" else topk_stable
+    vals, idx = select(scores, k)
     return vals, idx.to(torch.int32)
 
 
@@ -177,8 +184,11 @@ class TopKServer(nn.Module):
         k: int = 30,
         method: str = "exact",
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Queue a query batch without synchronizing; returns device
-        tensors (serving.py:212-273)."""
+        """Queue a query batch; returns device tensors (serving.py:212-273).
+
+        Every method but ``hybrid`` returns without synchronizing. The
+        ``hybrid`` method makes one host sync, to find the rows that fail
+        its audit (JAX keeps that loop on the device)."""
         uid = torch.as_tensor(np.asarray(user_ids, dtype=np.int64)).to(
             self.U.device
         )
