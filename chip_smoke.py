@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port's serving path on one CUDA card.
+"""Smoke run of the PyTorch port's main path on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -28,7 +28,23 @@ without the final ``ok`` line):
    run and K2's in the hybrid run; the engines must agree, the exact
    methods' recommendations must match a float64 NumPy reference, and the
    approx lists must be valid with a mean recall@30 of at least 0.9. Then
-   each method's served-batch time at 256 and 8,192 users.
+   each method's served-batch time at 256 and 8,192 users;
+7. "floor": compare P1 (the per-residue running max, the floor of K1)
+   with its plain version in both modes and both variants (value only,
+   value + index) on a ragged shape, no bias, a fully masked row, all ties,
+   fewer items than residues and the probe's full shape (69,878 x 10,380,
+   d = 50, 2 % masked); then, with the counts at 0, the probe itself:
+   CUDA-event medians of P1-A, P1-B, K1 at k = 1 and K1 at k = 30 on all
+   69,878 users in both modes;
+8. "train": ``train --model bpr --k 50 --batch-size 256`` for two epochs
+   through ``topk_rec_torch.cli.main`` on phase 6's fold (losses finite and
+   falling, ``final-U/V/B.dat`` and ``checkpoint.npz`` written), then
+   ``evaluate`` of the trained tables with both engines on held-out likes
+   drawn from the fold's own zipf law (K1's count must rise; the engines
+   must agree; accuracy@30 must beat the untrained tables', ``--epochs
+   0``), ``recommend --method kernel`` and ``hybrid`` on the trained tables,
+   and training samples/s at batch 256 and 8,192 (CUDA events over whole
+   chunks after a warm-up chunk) with the kernel launches per step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -40,6 +56,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -56,6 +73,9 @@ N_OM = 1000          # held-out (cold-start) items: the om candidate list
 N_PAIRS = 1_300_000  # drawn training pairs before de-duplication
 MIN_PAIRS = 1_000_000  # seen pairs the fold must hold after it
 TOL = 1e-5           # value tolerance, relative to max(1, |s|)
+PROBE_MASKED = 0.02  # masked share of the floor probe (probe_topk_floor.py:37)
+TRAIN_EPOCHS = 2
+TRAIN_LR = 0.05      # learns within two epochs; the default 1e-4 does not
 
 
 def phase(tag, **fields):
@@ -287,6 +307,121 @@ def hybrid_cases(dev):
     return worst
 
 
+def probe_case(dev, seed=1):
+    """The floor probe's inputs at its full shape, made on the card: U, V
+    and bias N(0, 1), 2 % of the (user, item) pairs masked."""
+    from topk_rec_torch.ops.topk_fused import pack_mask
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    U = torch.randn(N_USERS, DIM, generator=g, device=dev)
+    V = torch.randn(N_ITEMS, DIM, generator=g, device=dev)
+    b = torch.randn(N_ITEMS, generator=g, device=dev)
+    mask = torch.rand(N_USERS, N_ITEMS, generator=g, device=dev)
+    return U, V, b, pack_mask(mask < PROBE_MASKED)
+
+
+def compare_floor(got, want, U, V, b, words, exact):
+    """Max value error of P1 against its plain version. Values must agree
+    within TOL * max(1, |v|); indices must be equal wherever the residue's
+    best score is clear of its second best by more than that."""
+    from topk_rec_torch.ops.topk_floor import LANES
+    from topk_rec_torch.ops.topk_fused import NEG_INF, masked_scores
+
+    gv, gi = got
+    wv, wi = want
+    tol = TOL * torch.clamp(wv.abs(), min=1.0)
+    err = (gv - wv).abs()
+    if bool((err > tol).any()):
+        raise AssertionError(f"P1 values differ: max error {err.max().item()}")
+    if wi is None:
+        return float(err.max().item()), 0
+    s = masked_scores(U, V, b, words, exact)
+    n_u, n_i = s.shape
+    s = torch.nn.functional.pad(s, (0, (-n_i) % LANES), value=NEG_INF)
+    top2 = s.view(n_u, -1, LANES).topk(min(2, s.shape[1] // LANES), dim=1)
+    clear = wv > NEG_INF
+    if top2.values.shape[1] == 2:
+        clear &= (top2.values[:, 0] - top2.values[:, 1]) > tol
+    mism = int(((gi != wi) & clear).sum())
+    if mism or bool(((gi == -1) != (wi == -1)).any()):
+        raise AssertionError(f"P1: {mism} index mismatches on clear residues")
+    return float(err.max().item()), mism
+
+
+def floor_cases(dev):
+    """Phase 7a: P1 against its plain version, both modes, both variants.
+    Returns (max_abs_err, plain_ms of P1-A fp32 at the probe's shape)."""
+    from topk_rec_torch.ops.topk_floor import topk_floor, topk_floor_plain
+
+    cases = [  # (n_u, n_i, d, bias, ties)
+        (37, 301, 13, True, False),      # ragged: n_i % 32, n_i % 128 != 0
+        (130, 1000, 50, False, False),   # no bias
+        (16, 700, 2, False, True),       # all ties
+        (5, 90, 8, True, False),         # fewer items than residues
+        (N_USERS, N_ITEMS, DIM, True, False),  # the probe's full shape
+    ]
+    worst = 0.0
+    plain_ms = None
+    for n_u, n_i, d, bias, ties in cases:
+        if n_u == N_USERS:
+            U, V, b, words = probe_case(dev)
+        else:
+            U, V, b, words = make_case(dev, n_u, n_i, d, seed=n_u * 13 + n_i,
+                                       bias=bias, ties=ties)
+            words[2] = -1  # row 2: every item masked
+        for exact in (True, False):
+            for with_index in (False, True):
+                got = topk_floor(U, V, b, words, exact, with_index)
+                want = topk_floor_plain(U, V, b, words, exact, with_index)
+                torch.cuda.synchronize()
+                err, mism = compare_floor(got, want, U, V, b, words, exact)
+                if ties and with_index and not torch.equal(got[1], want[1]):
+                    raise AssertionError("P1 all-ties indices differ")
+                if n_u < N_USERS and (
+                        not bool((got[0][2] <= -3.0e38).all())
+                        or with_index and not bool((got[1][2] == -1).all())):
+                    raise AssertionError("P1: the masked row is not empty")
+                worst = max(worst, err)
+                fields = dict(n_u=n_u, n_i=n_i, d=d, mode="fp32" if exact
+                              else "bf16", variant="B" if with_index else "A",
+                              max_abs_err=err, mismatches=mism)
+                if n_u == N_USERS and exact and not with_index:
+                    plain_ms = cuda_median_ms(lambda: topk_floor_plain(
+                        U, V, b, words, exact), reps=7, warmup=2)
+                    fields.update(plain_ms=f"{plain_ms:.4f}")
+                phase("floor_vs_plain", **fields)
+    return worst, plain_ms
+
+
+def floor_path(dev):
+    """Phase 7b, the probe (probe_topk_floor.py:131-151) with the counts at
+    0: medians of P1-A, P1-B, K1 at k = 1 (its variant C) and K1 at k = 30
+    on the same 69,878 users, both modes. Returns (P1 launches, P1-A fp32
+    ms)."""
+    from topk_rec_torch.ops.topk_floor import topk_floor
+    from topk_rec_torch.ops.topk_fused import fused_score_topk
+
+    U, V, b, words = probe_case(dev)
+    topk_floor.launches = 0
+    ms_a = None
+    for exact in (True, False):
+        ms = {
+            "p1_a": cuda_median_ms(lambda: topk_floor(U, V, b, words, exact)),
+            "p1_b": cuda_median_ms(lambda: topk_floor(U, V, b, words, exact,
+                                                      with_index=True)),
+            "k1_k1": cuda_median_ms(
+                lambda: fused_score_topk(U, V, b, words, 1, exact)),
+            "k1_k30": cuda_median_ms(
+                lambda: fused_score_topk(U, V, b, words, TOP_K, exact)),
+        }
+        if exact:
+            ms_a = ms["p1_a"]
+        phase("floor", users=N_USERS, items=N_ITEMS, d=DIM,
+              mode="fp32" if exact else "bf16",
+              **{f"{n}_ms": f"{t:.4f}" for n, t in ms.items()})
+    return topk_floor.launches, ms_a
+
+
 def write_dat(path, mat):
     """``final-*.dat``: one row per line, ``%f`` values each followed by a
     space (the reference's text format)."""
@@ -378,7 +513,7 @@ def parse_recs(lines):
 
 def main_path(dev, root):
     """Phase 6: evaluate and recommend at full width through the CLI.
-    Returns the K1 and K2 launches of the run."""
+    Returns the K1 and K2 launches of the run and the fold's seen pairs."""
     from topk_rec_torch.ops.topk_fused import fused_score_topk
     from topk_rec_torch.ops.topk_hybrid import count_vs_threshold
 
@@ -486,7 +621,174 @@ def main_path(dev, root):
     if mean_recall < 0.9:
         raise AssertionError(f"approx recall@30 {mean_recall} < 0.9")
     serve_latency(root, dev)
-    return launches, count_launches
+    return launches, count_launches, (pu, pi)
+
+
+def write_zipf_likes(root, pu, pi, seed=5):
+    """Held-out likes ``f0te.zp.txt`` drawn from the fold's own zipf law:
+    for every 4th user, two distinct items the user has not seen, over the
+    whole catalog (``f0te.zp.idl``). A model that learned the training
+    pairs ranks these above random tables."""
+    rng = np.random.default_rng(seed)
+    n_warm = N_ITEMS - N_OM
+    seen = np.sort(pu * N_ITEMS + pi)
+    users = np.arange(0, N_USERS, 4)
+    cand = (rng.zipf(1.1, size=(users.size, 64)) - 1) % n_warm
+    key = users[:, None] * N_ITEMS + cand
+    at = np.minimum(np.searchsorted(seen, key), seen.size - 1)
+    ok = seen[at] != key
+    lines = []
+    for u, c, o in zip(users, cand, ok):
+        picks = []
+        for item, good in zip(c, o):
+            if good and item not in picks:
+                picks.append(item)
+            if len(picks) == 2:
+                lines.append(f"u{u},i{picks[0]}:1,i{picks[1]}:1")
+                break
+    with open(os.path.join(root, "f0te.zp.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, "f0te.zp.idl"), "w") as f:
+        f.write("\n".join(f"i{i}" for i in range(N_ITEMS)) + "\n")
+    return 2 * len(lines)
+
+
+def train_path(dev, root, pu, pi):
+    """Phase 8a: ``train --model bpr`` on the fold, then evaluate and
+    recommend the trained tables through the CLI. Returns the K1 and K2
+    launches of the run."""
+    from topk_rec_torch.ops.topk_fused import fused_score_topk
+    from topk_rec_torch.ops.topk_hybrid import count_vs_threshold
+
+    n_likes = write_zipf_likes(root, pu, pi)
+    trained, untrained = os.path.join(root, "bpr"), os.path.join(root, "bpr0")
+    common = ["train", "--model", "bpr", "-d", root, "--k", str(DIM),
+              "--batch-size", "256", "--lr", str(TRAIN_LR), "--device",
+              str(dev)]
+    fused_score_topk.launches = 0
+    count_vs_threshold.launches = 0
+    lines, wall = run_cli(common + ["-o", trained, "--epochs",
+                                    str(TRAIN_EPOCHS)])
+    losses = [float(m.group(1)) for m in
+              (re.search(r"Epoch +\d+, loss (\S+),", ln) for ln in lines) if m]
+    phase("train", epochs=len(losses), batch=256, lr=TRAIN_LR,
+          wall_s=f"{wall:.3f}", losses="|".join(f"{x:.4f}" for x in losses))
+    if len(losses) != TRAIN_EPOCHS or not np.all(np.isfinite(losses)) or \
+            not np.all(np.diff(losses) < 0):
+        raise AssertionError(f"train losses not finite and falling: {losses}")
+    for name in ("final-U.dat", "final-V.dat", "final-B.dat",
+                 "checkpoint.npz"):
+        if not os.path.exists(os.path.join(trained, name)):
+            raise AssertionError(f"train wrote no {name}")
+    run_cli(common + ["-o", untrained, "--epochs", "0"])
+
+    acc = {}
+    for model, engine in ((trained, "kernel"), (trained, "torch"),
+                          (untrained, "kernel")):
+        before = fused_score_topk.launches
+        lines, wall = run_cli(["evaluate", "-d", root, "-m", model, "-f", "0",
+                               "-sl", "zp", "--engine", engine, "--device",
+                               str(dev)])
+        n = fused_score_topk.launches - before
+        if (engine == "kernel") != (n > 0):
+            raise AssertionError(f"evaluate --engine {engine}: {n} launches")
+        acc[(model, engine)] = np.array(lines[0].split(",")[1:], float)
+        phase("train_evaluate", model=os.path.basename(model), engine=engine,
+              wall_s=f"{wall:.3f}", launches=n, csv=lines[0])
+    a_kernel, a_torch = acc[(trained, "kernel")], acc[(trained, "torch")]
+    a_base = acc[(untrained, "kernel")]
+    if not np.all(np.abs(a_kernel - a_torch) <= 2 / n_likes):
+        raise AssertionError(f"engines disagree: {a_kernel} vs {a_torch}")
+    if not a_kernel[-1] > a_base[-1]:
+        raise AssertionError(
+            f"trained accuracy@30 {a_kernel[-1]} <= untrained {a_base[-1]}")
+    phase("train_accuracy", likes=n_likes, trained_at_30=a_kernel[-1],
+          untrained_at_30=a_base[-1])
+
+    users = np.random.default_rng(6).choice(N_USERS, 256, replace=False)
+    ufile = os.path.join(root, "train_users.txt")
+    with open(ufile, "w") as f:
+        f.write("\n".join(f"u{u}" for u in users) + "\n")
+    recs = {}
+    for method in ("kernel", "hybrid"):
+        k1, k2 = fused_score_topk.launches, count_vs_threshold.launches
+        lines, wall = run_cli(["recommend", "-d", root, "-m", trained, "-f",
+                               "0", "-k", str(TOP_K), "--method", method,
+                               "--users-file", ufile, "--device", str(dev)])
+        n1 = fused_score_topk.launches - k1
+        n2 = count_vs_threshold.launches - k2
+        if ((method == "kernel") != (n1 > 0)
+                or (method == "hybrid") != (n2 > 0)):
+            raise AssertionError(f"recommend --method {method}: {n1} K1, {n2} "
+                                 "K2 launches")
+        recs[method] = parse_recs(lines)
+        phase("train_recommend", method=method, users=len(lines),
+              wall_s=f"{wall:.3f}", launches_k1=n1, launches_k2=n2)
+    for u in users:
+        (ik, vk), (ih, vh) = recs["kernel"][f"u{u}"], recs["hybrid"][f"u{u}"]
+        if len(ik) != TOP_K or np.any(np.abs(vk - vh) > 1e-5):
+            raise AssertionError(f"recommend kernel vs hybrid u{u}: values")
+        gaps = np.abs(np.diff(vk)) > 1e-5  # printed with six decimals
+        clear = np.ones(TOP_K, bool)
+        clear[1:] &= gaps
+        clear[:-1] &= gaps
+        if any(a != b for a, b, c in zip(ik, ih, clear) if c):
+            raise AssertionError(f"recommend kernel vs hybrid u{u}: items")
+    return fused_score_topk.launches, count_vs_threshold.launches
+
+
+def train_rate(dev, root):
+    """Phase 8b: training samples/s at batch 256 and 8,192 (CUDA events
+    over whole chunks of 128 steps after a warm-up chunk), and a profile
+    of one chunk at batch 256: kernel launches per step and the device's
+    busy share of the chunk."""
+    from topk_rec_torch.cli import _load_fold
+    from topk_rec_torch.models.bpr import BPR, INIT_STREAM, stream_generator
+
+    inter, _, _ = _load_fold(root, 0)
+    model = BPR(k=DIM, lr=TRAIN_LR, device=dev)
+    model.set_interactions(inter)
+    model._init_params(stream_generator(0, INIT_STREAM, dev))
+    steps = 128
+    chunk_ms = {}
+    for batch, n_chunks in ((256, 4), (8192, 2)):
+        gen = stream_generator(0, 0, dev)
+        model.train_chunk(gen, steps, batch)  # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n_chunks):
+            model.train_chunk(gen, steps, batch)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        chunk_ms[batch] = ms / n_chunks
+        phase("train_rate", batch=batch, chunks=n_chunks, steps=steps,
+              ms_per_step=f"{ms / (n_chunks * steps):.4f}",
+              samples_per_s=f"{n_chunks * steps * batch / ms * 1e3:.1f}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = stream_generator(0, 1, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train_chunk(gen, steps, 256)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # one stream, so the kernels do not overlap and their times add up
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    # the profiler slows the host down: the busy share of the unprofiled
+    # chunk (its CUDA-event time above) is the one to read
+    phase("train_profile", batch=256, steps=steps,
+          kernels_per_step=f"{len(kernels) / steps:.1f}",
+          device_busy_us=f"{busy_us:.0f}", profiled_wall_us=f"{wall_us:.0f}",
+          busy_share=(f"{busy_us / (chunk_ms[256] * 1e3):.4f}" if kernels
+                      else "not measured"))
 
 
 def serve_latency(root, dev):
@@ -536,11 +838,22 @@ def main() -> int:
 
     root = tempfile.mkdtemp(prefix=".smoke_", dir=ROOT)
     try:
-        launches, count_launches = main_path(dev, root)
+        launches, count_launches, (pu, pi) = main_path(dev, root)
+        if launches <= 0 or count_launches <= 0:
+            raise AssertionError("the main path never launched K1 or K2")
+        floor_err, floor_plain_ms = floor_cases(dev)
+        floor_launches, floor_ms = floor_path(dev)
+        if floor_launches <= 0:
+            raise AssertionError("the floor probe never launched P1")
+        t_launches, t_count_launches = train_path(dev, root, pu, pi)
+        if t_launches <= 0 or t_count_launches <= 0:
+            raise AssertionError("the trained tables never went through K1 "
+                                 "or K2")
+        train_rate(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    if launches <= 0 or count_launches <= 0:
-        raise AssertionError("the main path never launched K1 or K2")
+    launches += t_launches
+    count_launches += t_count_launches
 
     print(json.dumps({"kernels": [{
         "name": "topk_fused",
@@ -560,6 +873,15 @@ def main() -> int:
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
+    }, {
+        "name": "topk_floor",
+        "route": "cuda",
+        "source": "topk_rec_torch/csrc/topk_floor.cu",
+        "replaces": "benchmarks/probe_topk_floor.py:44",
+        "launches": floor_launches,
+        "max_abs_err": floor_err,
+        "ms": floor_ms,
+        "plain_ms": floor_plain_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,5 +1,8 @@
 """``python -m topk_rec_torch.cli`` against ``topk_rec_tpu.cli`` on one fold.
 
+``train`` runs on the CPU (``--device cpu``); the CSV that ``evaluate``
+prints for the tables it trained must be the JAX CLI's, byte for byte.
+
 The exported tables hold multiples of 1/64 below 4 in magnitude: they are
 exact in the ``%f`` text format and in bf16, and every product and sum of
 the scores is exact in fp32. Both packages therefore rank the same exact
@@ -126,3 +129,70 @@ def test_friendly_errors(fold_dir, tmp_path, capsys):
         torch_cli.main(["recommend", "-d", str(fold_dir), "-m", str(tmp_path),
                         "--device", "cpu", "nosuchuser"])
     assert ei.value.code == 2
+
+
+@pytest.fixture(scope="module")
+def trained_dir(fold_dir, tmp_path_factory):
+    """A BPR trained by the port's ``train`` on the CPU."""
+    out = tmp_path_factory.mktemp("torch_cli_bpr")
+    assert torch_cli.main([
+        "train", "--model", "bpr", "-d", str(fold_dir), "-o", str(out),
+        "--k", "8", "--epochs", "2", "--batch-size", "64", "--lr", "0.05",
+        "--device", "cpu"]) == 0
+    return out
+
+
+def test_train_writes_the_model_files(trained_dir, capsys):
+    for name in ("final-U.dat", "final-V.dat", "final-B.dat",
+                 "checkpoint.npz"):
+        assert (trained_dir / name).exists(), name
+    U = np.loadtxt(trained_dir / "final-U.dat")
+    assert U.shape == (60, 8) and np.isfinite(U).all()
+    with np.load(trained_dir / "checkpoint.npz") as data:
+        assert sorted(data.files) == ["ms_ib", "ms_ie", "ms_ue"]
+        assert data["ms_ie"].shape == (50, 8)
+
+
+@pytest.mark.parametrize("engine", ["torch", "kernel"])
+def test_evaluate_port_trained_model_same_csv(fold_dir, trained_dir, capsys,
+                                              engine):
+    """evaluate on the port-trained tables prints the JAX CLI's CSV."""
+    args = ["evaluate", "-d", str(fold_dir), "-m", str(trained_dir),
+            "-sl", "im", "om"]
+    assert jax_cli.main(args) == 0
+    want = capsys.readouterr().out
+    assert torch_cli.main(args + ["--engine", engine, "--device",
+                                  "cpu"]) == 0
+    assert capsys.readouterr().out == want
+
+
+def test_train_resumes_from_ckpt_dir(fold_dir, tmp_path, capsys):
+    """Rerunning the same command with --ckpt-dir resumes: two runs to 2
+    epochs, the second starting from the first's checkpoint, write the
+    tables of one straight run."""
+    common = ["train", "--model", "bpr", "-d", str(fold_dir), "--k", "4",
+              "--batch-size", "64", "--lr", "0.05", "--device", "cpu"]
+    ck = str(tmp_path / "ck")
+    torch_cli.main(common + ["-o", str(tmp_path / "a"), "--epochs", "2"])
+    torch_cli.main(common + ["-o", str(tmp_path / "b"), "--epochs", "1",
+                             "--ckpt-dir", ck])
+    torch_cli.main(common + ["-o", str(tmp_path / "b"), "--epochs", "2",
+                             "--ckpt-dir", ck])
+    assert "Resuming from checkpointed epoch 1" in capsys.readouterr().out
+    for name in ("final-U.dat", "final-V.dat", "final-B.dat"):
+        assert (tmp_path / "a" / name).read_text() == \
+            (tmp_path / "b" / name).read_text()
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--model", "wmf"], "not yet ported"),
+    (["--model", "vbpr"], "not yet ported"),
+    (["--model", "bpr", "--mesh", "2x4"], "not yet ported"),
+])
+def test_train_unported_exits_2(fold_dir, tmp_path, capsys, extra, message):
+    with pytest.raises(SystemExit) as ei:
+        torch_cli.main(["train", *extra, "-d", str(fold_dir), "-o",
+                        str(tmp_path / "out"), "--device", "cpu"])
+    assert ei.value.code == 2
+    assert message in capsys.readouterr().err
+    assert not (tmp_path / "out").exists()

@@ -1,15 +1,19 @@
-"""Command-line interface of the port: ``evaluate`` and ``recommend``.
+"""Command-line interface of the port: ``train``, ``evaluate`` and
+``recommend``.
 
-Counterpart of ``topk_rec_tpu/cli.py:66-179, 494-675``, with the same
+Counterpart of ``topk_rec_tpu/cli.py:66-405, 494-675``, with the same
 flags plus ``--device`` (default ``cuda``; there is no silent fallback to
-the CPU). The backends are named for this package: ``--engine
-{torch,kernel}`` stands for JAX's ``{xla,pallas}`` and ``--method
-{exact,approx,kernel,hybrid}`` for ``{exact,approx,pallas,hybrid}``; both
-default to ``kernel``, the fused CUDA kernel. Folds and ``.dat`` files are
+the CPU). ``train`` takes ``--model bpr``; the other models and ``--mesh``
+are not ported yet and exit with code 2. The backends are named for this
+package: ``--engine {torch,kernel}`` stands for JAX's ``{xla,pallas}`` and
+``--method {exact,approx,kernel,hybrid}`` for
+``{exact,approx,pallas,hybrid}``; both default to ``kernel``, the fused
+CUDA kernel. Folds and ``.dat`` files are
 read by the shared ``topk_rec_tpu.data``, so the CSV lines match
 ``topk_rec_tpu.cli``.
 
 Usage:
+  python -m topk_rec_torch.cli train --model bpr -d data -o embed/bpr
   python -m topk_rec_torch.cli evaluate -d data -m embed/bpr -f 0 -sl im om
   python -m topk_rec_torch.cli recommend -d data -m embed/bpr -k 30 u1 u2
   python -m topk_rec_torch.cli recommend ... --method hybrid u1 u2
@@ -24,12 +28,22 @@ from typing import List, Optional
 
 import numpy as np
 
-from topk_rec_tpu.config import EvalConfig
+from topk_rec_tpu.config import (
+    DataConfig,
+    EvalConfig,
+    ModelConfig,
+    TrainConfig,
+)
 from topk_rec_tpu.data import Interactions, load_id_map, read_dat
+from topk_rec_tpu.utils import tprint
 
 from .eval.protocol import load_test_likes
 
 _EC = EvalConfig()
+_MC = ModelConfig()
+_TC = TrainConfig()
+MODELS = ("bpr", "vbpr", "wmf", "cer", "dpm")  # the JAX CLI's choices
+PORTED_MODELS = ("bpr",)
 
 
 def _load_fold(data_dir: str, fold: int):
@@ -97,6 +111,62 @@ def _device(name: str):
         return resolve_device(name)
     except (RuntimeError, ValueError) as e:
         raise _fail(str(e))
+
+
+def train_from_config(cfg: TrainConfig, device="cuda"):
+    """Train the configured model on ``device``, export ``final-*.dat`` and
+    ``checkpoint.npz`` into ``cfg.out_dir`` and return the model
+    (cli.py:266-361, BPR only)."""
+    from .models import BPR
+
+    mc = cfg.model
+    if mc.model not in PORTED_MODELS:
+        raise _fail(f"--model {mc.model} is not yet ported to topk_rec_torch "
+                    f"(ported: {', '.join(PORTED_MODELS)})")
+    device = _device(device)
+    model = BPR(
+        k=mc.k, lambda_u=mc.lambda_u, lambda_i=mc.lambda_i,
+        lambda_j=mc.lambda_j, lambda_b=mc.lambda_b, lr=mc.lr, mode=mc.mode,
+        seed=mc.seed, membership=mc.membership, device=device,
+    )
+    model.load_training_data(
+        os.path.join(cfg.data.data_dir, cfg.data.uid_file),
+        os.path.join(cfg.data.data_dir, cfg.data.iid_file),
+        os.path.join(cfg.data.data_dir, cfg.data.train_file),
+    )
+    model.train(
+        epochs=cfg.epochs, batch_size=cfg.batch_size,
+        epoch_sample_limit=cfg.epoch_sample_limit,
+        model_path=cfg.warm_start, ckpt_dir=cfg.ckpt_dir,
+        ckpt_every=cfg.ckpt_every,
+    )
+    model.export_embeddings(cfg.out_dir)
+    tprint(f"Exported embeddings to {cfg.out_dir}")
+    return model
+
+
+def cmd_train(args) -> int:
+    if args.mesh is not None:
+        raise _fail("--mesh (distributed training) is not yet ported to "
+                    "topk_rec_torch")
+    cfg = TrainConfig(
+        data=DataConfig(data_dir=args.data, fold=args.fold),
+        model=ModelConfig(
+            model=args.model_name, k=args.k, lambda_u=args.lambda_u,
+            lambda_i=args.lambda_i, lambda_j=args.lambda_j,
+            lambda_b=args.lambda_b, lr=args.lr, mode=args.mode,
+            seed=args.seed, membership=args.membership,
+        ),
+        out_dir=args.out,
+        epochs=args.epochs,
+        batch_size=args.batch_size,
+        epoch_sample_limit=args.epoch_sample_limit,
+        warm_start=args.warm_start,
+        ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
+    )
+    train_from_config(cfg, args.device)
+    return 0
 
 
 def cmd_evaluate(args) -> int:
@@ -175,6 +245,41 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
     pe.set_defaults(func=cmd_evaluate)
+
+    pt = sub.add_parser("train", help="train a model and export embeddings")
+    pt.add_argument("--model", dest="model_name", required=True,
+                    choices=MODELS,
+                    help="bpr; the other models are not yet ported")
+    pt.add_argument("-d", "--data", required=True)
+    pt.add_argument("-o", "--out", required=True)
+    pt.add_argument("-f", "--fold", type=int, default=0)
+    pt.add_argument("--k", type=int, default=_MC.k)
+    pt.add_argument("--epochs", type=int, default=_TC.epochs)
+    pt.add_argument("--batch-size", type=int, default=_TC.batch_size)
+    pt.add_argument("--epoch-sample-limit", type=int,
+                    default=_TC.epoch_sample_limit)
+    pt.add_argument("--lr", type=float, default=_MC.lr)
+    pt.add_argument("--mode", default=_MC.mode, choices=["l2", "l1"])
+    pt.add_argument("--lambda-u", type=float, default=_MC.lambda_u)
+    pt.add_argument("--lambda-i", type=float, default=_MC.lambda_i)
+    pt.add_argument("--lambda-j", type=float, default=_MC.lambda_j)
+    pt.add_argument("--lambda-b", type=float, default=_MC.lambda_b)
+    pt.add_argument("--seed", type=int, default=_MC.seed)
+    pt.add_argument("--membership", default=_MC.membership,
+                    choices=["auto", "bitmap", "sorted"],
+                    help="negative-sampling membership store (auto takes "
+                    "the sorted keys when the bitmap would exceed 1 GiB)")
+    pt.add_argument("--warm-start", default=_TC.warm_start)
+    pt.add_argument("--ckpt-dir", default=_TC.ckpt_dir,
+                    help="crash-resume checkpoints (tables + optimizer "
+                    "state) every --ckpt-every epochs; rerunning the same "
+                    "command resumes")
+    pt.add_argument("--ckpt-every", type=int, default=_TC.ckpt_every)
+    pt.add_argument("--mesh", default=None,
+                    help="distributed training: not yet ported")
+    pt.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    pt.set_defaults(func=cmd_train)
 
     pr = sub.add_parser(
         "recommend", help="top-k unseen items for given users (serving)"

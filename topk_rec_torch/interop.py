@@ -1,10 +1,12 @@
-"""JAX-package parameters -> the port's tensors.
+"""JAX-package parameters <-> the port's tensors.
 
 The JAX package exports a trained model as host NumPy arrays: ``fue``,
 ``fie`` and ``fib`` of a ``Recommender`` (``topk_rec_tpu/models/base.py:
 31-47``), which are also what ``read_dat`` gives for ``final-U/V/B.dat``.
 :func:`from_jax_params` moves them onto a torch device as the inputs of
 ``TopKServer`` (and of the evaluator, which takes the same three tables).
+:func:`bpr_from_jax` and :func:`bpr_to_jax` carry a BPR's whole training
+state (tables and RMSProp accumulators) between the two packages.
 """
 
 from __future__ import annotations
@@ -44,3 +46,32 @@ def from_jax_params(
 
     bias = None if B is None else to_tensor(np.reshape(B, -1), torch.float32)
     return to_tensor(U, dt), to_tensor(V, dt), bias
+
+
+def bpr_from_jax(model, params, ms) -> None:
+    """Load a JAX BPR's state into the port's ``BPR`` ``model``.
+
+    ``params`` and ``ms`` are the JAX model's ``_params`` and ``_ms``
+    dictionaries ({"ue", "ie", "ib"}), as numpy arrays. ``model`` must have
+    its training data set; its tables are replaced and its exported host
+    tables follow.
+    """
+    from .models.bpr import BPRTables
+
+    def host(tree, name):
+        return torch.from_numpy(np.asarray(tree[name], np.float32))
+
+    model.tables = BPRTables(host(params, "ue"), host(params, "ie"),
+                             host(params, "ib")).to(model.device)
+    model.tables.load(ms=ms)
+    model._sync_host()
+
+
+def bpr_to_jax(model):
+    """``(params, ms)`` of the port's ``BPR`` as the JAX BPR's ``_params``
+    and ``_ms`` dictionaries of numpy arrays (convert them with
+    ``jnp.asarray`` on the JAX side)."""
+    def host(tree):
+        return {n: t.detach().cpu().numpy().copy() for n, t in tree.items()}
+
+    return host(model.tables.params()), host(model.tables.ms())

@@ -124,6 +124,8 @@ def load_library() -> ctypes.CDLL:
             lib.tkr_topk_fused.restype = ci
             lib.tkr_count_vs_threshold.argtypes = [vp] * 7 + [ci] * 7 + [vp]
             lib.tkr_count_vs_threshold.restype = ci
+            lib.tkr_topk_floor.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+            lib.tkr_topk_floor.restype = ci
             for name in ("tkr_topk_max_d", "tkr_topk_chunk"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = ci
