@@ -44,7 +44,21 @@ without the final ``ok`` line):
    must agree; accuracy@30 must beat the untrained tables', ``--epochs
    0``), ``recommend --method kernel`` and ``hybrid`` on the trained tables,
    and training samples/s at batch 256 and 8,192 (CUDA events over whole
-   chunks after a warm-up chunk) with the kernel launches per step.
+   chunks after a warm-up chunk) with the kernel launches per step;
+9. "content": item features at d = 20,000 (``meta.pkl``, word counts that
+   encode each item's place in the fold's zipf law) and held-out likes of
+   cold items from the same law (``zom``); through
+   ``topk_rec_torch.cli.main`` at k = 50, ``train --model vbpr`` (one
+   epoch's pairs at batch 256 as two half epochs, lr 0.05, lambda_b
+   0.01), ``wmf`` (5 iterations) and ``cer`` (3 iterations, the
+   Woodbury-CG E-solve, ``--log-dir`` and ``--save-lag 1``), each also
+   untrained; losses finite and falling, the
+   model files written, CER's E-solves all by CG; then ``evaluate -sl zp
+   zom`` of every table set with ``--engine kernel`` (K1's count must
+   rise) and of the trained ones with ``--engine torch`` (the engines
+   agree within 2/count); trained beats untrained on zp for all three and
+   on zom for VBPR and CER. Then the layers' times: VBPR ms and launches
+   per step, one ALS half-sweep per side, CER's E-solve and its CG steps.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -56,6 +70,7 @@ import contextlib
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -76,6 +91,19 @@ TOL = 1e-5           # value tolerance, relative to max(1, |s|)
 PROBE_MASKED = 0.02  # masked share of the floor probe (probe_topk_floor.py:37)
 TRAIN_EPOCHS = 2
 TRAIN_LR = 0.05      # learns within two epochs; the default 1e-4 does not
+CONTENT_D = 20000    # the reference's meta.pkl width (SURVEY.md:87)
+CONTENT_K = 50       # the reference's content-model k (SURVEY.md:87)
+TOPIC_TOKENS = 200   # words of an item's feature row that encode its place
+NOISE_TOKENS = 40    # and words drawn from the whole vocabulary
+ALS_ITERS = {"wmf": 5, "cer": 3}
+VBPR_LB = 0.01       # without it the item biases take the popularity, and
+#                      the content learns only that never-liked (cold) items
+#                      lose (CPU rehearsal at 30,000 x 6,000: cold
+#                      accuracy@30 0.017 at lambda_b = 0, 0.214 at 0.01)
+COUNT_SCALE = 0.04   # rows of norm ~1: on raw counts (norm ~25) VBPR's
+#                      loss rises at lr 0.05
+CER_LE = 1e4 * COUNT_SCALE ** 2  # the reference's le = 1e4 on raw counts
+COLD = "zom"         # scenario: cold items liked by the fold's zipf law
 
 
 def phase(tag, **fields):
@@ -810,6 +838,300 @@ def serve_latency(root, dev):
               **{f"{m}_ms": f"{t:.4f}" for m, t in ms.items()})
 
 
+def write_content(root, seed=7):
+    """``meta.pkl``: item features [N_ITEMS, CONTENT_D] in vid order, a
+    pickled scipy CSR matrix of word counts, as ``load_features`` reads it.
+    Each row is a noisy projection of the item's place in the fold's zipf
+    law, x = log10(1 + rank) with the rank taken within its group (warm
+    items 0 .. n_warm - 1, cold items n_warm ..), onto hat functions at the
+    integers: topic t owns words 100·t .. 100·t + 99, and each of an
+    item's TOPIC_TOKENS topic words comes from topic floor(x) with
+    probability 1 - frac(x), else from the next; NOISE_TOKENS more come
+    from the whole vocabulary. The counts are scaled by COUNT_SCALE.
+    Returns the dense float32 matrix."""
+    import scipy.sparse as ss
+
+    rng = np.random.default_rng(seed)
+    n_warm = N_ITEMS - N_OM
+    rank = np.concatenate([np.arange(n_warm), np.arange(N_OM)])
+    x = np.log10(1 + rank)
+    lo = np.floor(x).astype(np.int64)
+    topic = lo[:, None] + (rng.random((N_ITEMS, TOPIC_TOKENS))
+                           < (x - lo)[:, None])
+    words = np.concatenate([
+        topic * 100 + rng.integers(0, 100, size=topic.shape),
+        rng.integers(0, CONTENT_D, size=(N_ITEMS, NOISE_TOKENS)),
+    ], 1)
+    rows = np.repeat(np.arange(N_ITEMS), words.shape[1])
+    feat = ss.csr_matrix((np.full(words.size, COUNT_SCALE, np.float32),
+                          (rows, words.reshape(-1))),
+                         shape=(N_ITEMS, CONTENT_D))  # sums repeated words
+    with open(os.path.join(root, "meta.pkl"), "wb") as f:
+        pickle.dump(feat, f, protocol=4)
+    return feat.toarray()
+
+
+def write_cold_likes(root, seed=8):
+    """Held-out likes of cold items, ``f0te.zom.txt``, drawn from the
+    fold's zipf law within the cold group: for every 4th user, two distinct
+    items n_warm + (zipf(1.1) - 1) mod N_OM. Returns the number of likes."""
+    rng = np.random.default_rng(seed)
+    n_warm = N_ITEMS - N_OM
+    users = np.arange(0, N_USERS, 4)
+    cand = n_warm + (rng.zipf(1.1, size=(users.size, 32)) - 1) % N_OM
+    lines = []
+    for u, c in zip(users, cand):
+        picks = list(dict.fromkeys(c.tolist()))[:2]
+        if len(picks) == 2:
+            lines.append(f"u{u},i{picks[0]}:1,i{picks[1]}:1")
+    with open(os.path.join(root, f"f0te.{COLD}.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, f"f0te.{COLD}.idl"), "w") as f:
+        f.write("\n".join(f"i{i}" for i in range(n_warm, N_ITEMS)) + "\n")
+    return 2 * len(lines)
+
+
+@contextlib.contextmanager
+def counted(module, *names):
+    """Count the calls of ``module``'s functions ``names`` in the block."""
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+ITER_RE = re.compile(r"Iter +\d+, loss (\S+),.* time (\S+)s")
+EPOCH_RE = re.compile(r"Epoch +\d+, loss (\S+), time (\S+)s")
+
+
+def content_train(dev, root, n_pos):
+    """Phase 9a: ``train --model vbpr|wmf|cer`` at k = 50 through the CLI,
+    each trained and untrained. Returns {model: (trained dir, untrained
+    dir)}."""
+    from topk_rec_torch.models import cer as tcer
+
+    half = n_pos // 2
+    content = ["--content", "meta.pkl", "--d", str(CONTENT_D)]
+    runs = {  # model: (its training flags, its untrained flags, the cut)
+        "vbpr": (content + ["--lr", str(TRAIN_LR), "--lambda-b",
+                            str(VBPR_LB), "--batch-size", "256", "--epochs",
+                            "2", "--epoch-sample-limit", str(half)],
+                 content + ["--epochs", "0"],
+                 "one epoch of pairs as 2 halves"),
+        "wmf": (["--max-iter", str(ALS_ITERS["wmf"])], ["--max-iter", "0"],
+                f"{ALS_ITERS['wmf']} of 200 iterations"),
+        "cer": (content + ["--max-iter", str(ALS_ITERS["cer"]), "--als-le",
+                           str(CER_LE), "--save-lag", "1", "--log-dir",
+                           os.path.join(root, "cer")],
+                content + ["--max-iter", "0", "--als-le", str(CER_LE)],
+                f"{ALS_ITERS['cer']} of 200 iterations"),
+    }
+    dirs = {}
+    for name, (flags, flags0, cut) in runs.items():
+        trained = os.path.join(root, name)
+        untrained = os.path.join(root, name + "0")
+        common = ["train", "--model", name, "-d", root, "--k",
+                  str(CONTENT_K), "--device", str(dev)]
+        with counted(tcer, "_ridge_woodbury_cg", "_ridge_direct",
+                     "_ridge_woodbury_direct") as solves:
+            lines, wall = run_cli(common + ["-o", trained] + flags)
+        hits = [m for m in map((EPOCH_RE if name == "vbpr"
+                                else ITER_RE).search, lines) if m]
+        losses = [float(m.group(1)) for m in hits]
+        want = 2 if name == "vbpr" else ALS_ITERS[name]
+        fields = dict(model=name, k=CONTENT_K, wall_s=f"{wall:.3f}",
+                      losses="|".join(m.group(1) for m in hits),
+                      s_per_iter="|".join(m.group(2) for m in hits),
+                      cut=cut.replace(" ", "_"))
+        if name == "cer":
+            fields.update(e_solves_cg=solves["_ridge_woodbury_cg"],
+                          e_solves_direct=solves["_ridge_direct"]
+                          + solves["_ridge_woodbury_direct"])
+        phase("content_train", **fields)
+        if len(losses) != want or not np.all(np.isfinite(losses)) or \
+                not np.all(np.diff(losses) < 0):
+            raise AssertionError(f"{name}: losses not finite and falling: "
+                                 f"{losses}")
+        files = {"vbpr": ["final-U.dat", "final-V.dat", "final-B.dat",
+                          "checkpoint.npz"],
+                 "wmf": ["final-U.dat", "final-V.dat"],
+                 "cer": ["final-U.dat", "final-V.dat", "final-E.dat",
+                         "state.log", "settings.txt", "0000-U.dat"]}[name]
+        for f in files:
+            if not os.path.exists(os.path.join(trained, f)):
+                raise AssertionError(f"train --model {name} wrote no {f}")
+        if name == "cer" and (solves["_ridge_woodbury_cg"] != want
+                              or fields["e_solves_direct"]):
+            raise AssertionError(f"CER left the Woodbury-CG path: {solves}")
+        run_cli(common + ["-o", untrained] + flags0)
+        dirs[name] = (trained, untrained)
+    return dirs
+
+
+def content_evaluate(dev, root, dirs, counts):
+    """Phase 9b: ``evaluate -sl zp zom`` of every model's tables, trained
+    and untrained, with ``--engine kernel``, and of the trained ones with
+    ``--engine torch``. K1's count must rise in every kernel run, the
+    engines agree within 2/count, and the trained tables beat the
+    untrained on zp (all three) and on zom (VBPR and CER). Returns K1's
+    launches."""
+    from topk_rec_torch.ops.topk_fused import fused_score_topk
+
+    fused_score_topk.launches = 0
+    for name, (trained, untrained) in dirs.items():
+        acc = {}
+        for model, engine in ((trained, "kernel"), (trained, "torch"),
+                              (untrained, "kernel")):
+            before = fused_score_topk.launches
+            lines, wall = run_cli(["evaluate", "-d", root, "-m", model, "-f",
+                                   "0", "-sl", "zp", COLD, "--engine", engine,
+                                   "--device", str(dev)])
+            n = fused_score_topk.launches - before
+            if (engine == "kernel") != (n > 0):
+                raise AssertionError(f"evaluate --engine {engine}: {n} "
+                                     "launches")
+            acc[(model, engine)] = {ln.split(",")[0]:
+                                    np.array(ln.split(",")[1:], float)
+                                    for ln in lines}
+            phase("content_evaluate", model=os.path.basename(model),
+                  engine=engine, wall_s=f"{wall:.3f}", launches=n,
+                  csv="|".join(lines))
+        fields = {}
+        for sc, count in counts.items():
+            a_k = acc[(trained, "kernel")][sc]
+            a_t = acc[(trained, "torch")][sc]
+            a_0 = acc[(untrained, "kernel")][sc]
+            if not np.all(np.abs(a_k - a_t) <= 2 / count):
+                raise AssertionError(f"{name} {sc}: engines disagree: {a_k} "
+                                     f"vs {a_t}")
+            fields[f"{sc}_trained_at_30"] = a_k[-1]
+            fields[f"{sc}_untrained_at_30"] = a_0[-1]
+            if (sc == "zp" or name != "wmf") and not a_k[-1] > a_0[-1]:
+                raise AssertionError(
+                    f"{name} {sc}: trained accuracy@30 {a_k[-1]} <= "
+                    f"untrained {a_0[-1]}")
+        phase("content_accuracy", model=name, **fields)
+    return fused_score_topk.launches
+
+
+def content_rates(dev, root, feat):
+    """Phase 9c: the layers' times on the card. VBPR: CUDA events over
+    whole 64-step chunks at batch 256 after a warm-up chunk, and a
+    torch.profiler count of launches per step. WMF: one half-sweep of each
+    side (the pair sums are a CSR product per block). CER: the E-solve by
+    Woodbury-CG on the cached G, with its CG steps."""
+    from topk_rec_torch.cli import _load_fold
+    from topk_rec_torch.models import CER, VBPR, WMF
+    from topk_rec_torch.models.bpr import INIT_STREAM, stream_generator
+    from topk_rec_torch.ops.als import half_sweep
+
+    inter, _, _ = _load_fold(root, 0)
+    model = VBPR(k=CONTENT_K, d=CONTENT_D, lr=TRAIN_LR, device=dev)
+    model.set_interactions(inter)
+    model.set_features(feat)
+    model._init_params(stream_generator(0, INIT_STREAM, dev))
+    steps, n_chunks = 64, 4
+    gen = stream_generator(0, 0, dev)
+    model.train_chunk(gen, steps, 256)  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_chunks):
+        model.train_chunk(gen, steps, 256)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / (n_chunks * steps)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.train_chunk(gen, steps, 256)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    phase("content_vbpr_step", batch=256, d=CONTENT_D, k=CONTENT_K,
+          ms_per_step=f"{step_ms:.4f}",
+          samples_per_s=f"{256 / step_ms * 1e3:.1f}",
+          kernels_per_step=f"{len(kernels) / steps:.1f}",
+          busy_share=(f"{busy_us / (step_ms * steps * 1e3):.4f}" if kernels
+                      else "not measured"))
+    del model
+
+    wmf = WMF(k=CONTENT_K, device=dev)
+    wmf.set_interactions(inter)
+    t = wmf._device_tables()
+    ms = {
+        "user": cuda_median_ms(lambda: half_sweep(
+            wmf._user_plan, t.U, t.V, wmf._rated_items, wmf.a, wmf.b, wmf.lu,
+            as_numpy=False), reps=5, warmup=1),
+        "item": cuda_median_ms(lambda: half_sweep(
+            wmf._item_plan, t.V, t.U, wmf._rated_users, wmf.a, wmf.b, wmf.lv,
+            as_numpy=False), reps=5, warmup=1),
+    }
+    phase("content_als_sweep", k=CONTENT_K, sums="csr_spmm",
+          user_blocks=wmf._user_plan.n_blocks,
+          item_blocks=wmf._item_plan.n_blocks,
+          **{f"{s}_half_sweep_ms": f"{v:.4f}" for s, v in ms.items()})
+
+    cer = CER(k=CONTENT_K, d=CONTENT_D, le=CER_LE, device=dev)
+    cer.set_interactions(inter)
+    cer.set_features(feat)
+    Y = t.V.clone()
+    del wmf, t
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    cer._gram_items = cer._feat_device() @ cer._feat_device().T
+    end.record()
+    end.synchronize()
+    gram_ms = start.elapsed_time(end)
+    solve_ms = cuda_median_ms(lambda: cer._solve_E(Y), reps=5, warmup=1)
+    if cer._e_solver_use_direct or not cer.e_solver_steps:
+        raise AssertionError("the E-solve left the Woodbury-CG path")
+    phase("content_e_solve", d=CONTENT_D, n_items=N_ITEMS, k=CONTENT_K,
+          route="woodbury_cg", cg_steps=cer.e_solver_steps,
+          gram_ms=f"{gram_ms:.4f}", e_solve_ms=f"{solve_ms:.4f}")
+
+
+def content_path(dev, root):
+    """Phase 9: the content and ALS trainers at k = 50, d = 20000 on phase
+    6's fold, then their tables through K1. Returns K1's launches."""
+    from topk_rec_torch.cli import _load_fold
+
+    t0 = time.perf_counter()
+    feat = write_content(root)
+    n_cold = write_cold_likes(root)
+    with open(os.path.join(root, "f0te.zp.txt")) as f:
+        n_zp = 2 * sum(1 for line in f if line.strip())
+    n_pos = _load_fold(root, 0)[0].nnz
+    phase("content_data", items=N_ITEMS, d=CONTENT_D,
+          feat_mb=feat.nbytes >> 20, zp_likes=n_zp, zom_likes=n_cold,
+          liked_pairs=n_pos,
+          write_s=f"{time.perf_counter() - t0:.2f}")
+    dirs = content_train(dev, root, n_pos)
+    launches = content_evaluate(dev, root, dirs, {"zp": n_zp, COLD: n_cold})
+    content_rates(dev, root, feat)
+    phase("content", seconds=f"{time.perf_counter() - t0:.2f}",
+          k1_launches=launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs one card",
@@ -850,9 +1172,13 @@ def main() -> int:
             raise AssertionError("the trained tables never went through K1 "
                                  "or K2")
         train_rate(dev, root)
+        c_launches = content_path(dev, root)
+        if c_launches <= 0:
+            raise AssertionError("the content models' tables never went "
+                                 "through K1")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    launches += t_launches
+    launches += t_launches + c_launches
     count_launches += t_count_launches
 
     print(json.dumps({"kernels": [{

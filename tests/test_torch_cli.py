@@ -11,6 +11,10 @@ byte-identical and recommend must return the same items; the printed
 scores agree within 1e-5 (one unit of the sixth printed decimal).
 """
 
+import json
+import os
+import pickle
+
 import numpy as np
 import pytest
 
@@ -19,6 +23,8 @@ from topk_rec_tpu.data import load_id_map
 from topk_rec_tpu.data.dataset import synthetic_interactions
 from topk_rec_tpu.data.io import write_dat
 from topk_rec_torch import cli as torch_cli
+
+CONTENT_D = 64  # feature width of the fold's meta.pkl
 
 
 @pytest.fixture(scope="module")
@@ -60,6 +66,10 @@ def fold_dir(tmp_path_factory):
             ",".join([uid_names[u]] + [f"{vid_names[i]}:1" for i in liked])
         )
     (root / "f0te.om.txt").write_text("\n".join(omlines) + "\n")
+    # item features in vid order, wider than the catalog (CER's CG route)
+    with open(root / "meta.pkl", "wb") as f:
+        pickle.dump(rng.normal(size=(n_items, CONTENT_D)).astype(np.float32),
+                    f)
     return root
 
 
@@ -185,9 +195,9 @@ def test_train_resumes_from_ckpt_dir(fold_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--model", "wmf"], "not yet ported"),
-    (["--model", "vbpr"], "not yet ported"),
+    (["--model", "dpm"], "not yet ported"),
     (["--model", "bpr", "--mesh", "2x4"], "not yet ported"),
+    (["--model", "cer", "--mesh", "2x4"], "not yet ported"),
 ])
 def test_train_unported_exits_2(fold_dir, tmp_path, capsys, extra, message):
     with pytest.raises(SystemExit) as ei:
@@ -196,3 +206,77 @@ def test_train_unported_exits_2(fold_dir, tmp_path, capsys, extra, message):
     assert ei.value.code == 2
     assert message in capsys.readouterr().err
     assert not (tmp_path / "out").exists()
+
+
+# per model: its own flags, and the files both CLIs write for them
+TRAIN_CASES = {
+    "vbpr": (["--content", "meta.pkl", "--d", str(CONTENT_D), "--epochs",
+              "2", "--batch-size", "64", "--lr", "0.05"],
+             ["checkpoint.npz", "final-B.dat", "final-U.dat", "final-V.dat"]),
+    "wmf": (["--max-iter", "4"], ["final-U.dat", "final-V.dat"]),
+    "cer": (["--content", "meta.pkl", "--d", str(CONTENT_D), "--max-iter",
+             "3", "--als-le", "100", "--save-lag", "1"],
+            ["0000-U.dat", "0000-V.dat", "0001-U.dat", "0001-V.dat",
+             "0002-U.dat", "0002-V.dat", "final-E.dat", "final-U.dat",
+             "final-V.dat", "settings.txt", "state.log"]),
+}
+
+
+@pytest.mark.parametrize("model", sorted(TRAIN_CASES))
+def test_train_content_and_als_models(fold_dir, tmp_path, capsys, model):
+    """``train --model {vbpr,wmf,cer} --device cpu`` writes the files that
+    the JAX CLI's ``train`` writes, and the JAX CLI's ``evaluate`` reads the
+    port's tables into the CSV that the port's prints (both engines)."""
+    flags, files = TRAIN_CASES[model]
+    outs = {}
+    for name, cli, extra in (("port", torch_cli, ["--device", "cpu"]),
+                             ("jax", jax_cli, [])):
+        out = tmp_path / name
+        log = ["--log-dir", str(out)] if model == "cer" else []
+        assert cli.main(["train", "--model", model, "-d", str(fold_dir),
+                         "-o", str(out), "--k", "6", *flags, *log,
+                         *extra]) == 0
+        assert sorted(os.listdir(out)) == files, name
+        outs[name] = out
+    capsys.readouterr()
+    V = np.loadtxt(outs["port"] / "final-V.dat")
+    assert V.shape[0] == 50 and np.isfinite(V).all()
+    args = ["evaluate", "-d", str(fold_dir), "-m", str(outs["port"]),
+            "-sl", "im", "om"]
+    assert jax_cli.main(args) == 0
+    want = capsys.readouterr().out
+    assert want.startswith("im,") and "\nom," in want
+    for engine in ("torch", "kernel"):
+        assert torch_cli.main(args + ["--engine", engine, "--device",
+                                      "cpu"]) == 0
+        assert capsys.readouterr().out == want, engine
+
+
+@pytest.mark.parametrize("extra", [
+    ["--model", "cer", "--theta-init", "theta.dat"],
+    ["--model", "vbpr"],
+    ["--model", "cer"],
+])
+def test_train_refusals_word_for_word(fold_dir, tmp_path, extra):
+    """--theta-init is for wmf only and --content is required for the
+    content models: the port refuses with the JAX CLI's own message."""
+    codes = []
+    for cli, dev in ((jax_cli, []), (torch_cli, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as ei:
+            cli.main(["train", *extra, "-d", str(fold_dir), "-o",
+                      str(tmp_path / "out"), "--k", "4", *dev])
+        codes.append(ei.value.code)
+    assert codes[0] == codes[1]
+    assert isinstance(codes[1], str) and codes[1].startswith("--")
+
+
+def test_train_profile_dir_writes_a_trace(fold_dir, tmp_path):
+    prof = tmp_path / "prof"
+    assert torch_cli.main([
+        "train", "--model", "wmf", "-d", str(fold_dir), "-o",
+        str(tmp_path / "out"), "--k", "4", "--max-iter", "2",
+        "--profile-dir", str(prof), "--device", "cpu"]) == 0
+    with open(prof / "trace.json") as f:
+        trace = json.load(f)
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("cholesky" in n for n in names), sorted(names)[:20]

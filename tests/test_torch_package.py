@@ -14,7 +14,7 @@ import topk_rec_torch
 from topk_rec_torch import cli as torch_cli
 from topk_rec_torch.device import resolve_device
 from topk_rec_torch.eval import device as tdev
-from topk_rec_torch.models import BPR
+from topk_rec_torch.models import BPR, CER, VBPR, WMF
 from topk_rec_torch.ops import topk_floor as tfl
 from topk_rec_torch.ops import topk_fused as tf
 from topk_rec_torch.ops import topk_hybrid as th
@@ -37,7 +37,11 @@ def test_imports_without_jax():
         "import topk_rec_torch.ops.sampling\n"
         "import topk_rec_torch.ops.sparse_update\n"
         "import topk_rec_torch.ops.topk_floor, topk_rec_torch.checkpoint\n"
+        "import topk_rec_torch.ops.als, topk_rec_torch.models.wmf\n"
+        "import topk_rec_torch.models.cer, topk_rec_torch.models.vbpr\n"
+        "import topk_rec_torch.profiling\n"
         "topk_rec_torch.BPR, topk_rec_torch.TripletSampler\n"
+        "topk_rec_torch.VBPR, topk_rec_torch.WMF, topk_rec_torch.CER\n"
         "loaded = [m for m in sys.modules if m.startswith('jax')\n"
         "          and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
@@ -72,6 +76,9 @@ def test_lazy_package_attributes():
     assert topk_rec_torch.exact_topk_hybrid is th.exact_topk_hybrid
     assert topk_rec_torch.topk_floor is tfl.topk_floor
     assert topk_rec_torch.BPR is BPR
+    assert topk_rec_torch.VBPR is VBPR
+    assert topk_rec_torch.WMF is WMF
+    assert topk_rec_torch.CER is CER
     assert topk_rec_torch.TripletSampler is TripletSampler
     with pytest.raises(AttributeError):
         topk_rec_torch.no_such_name
@@ -134,3 +141,24 @@ def test_cpu_training_stays_on_the_cpu(small_inter):
     for t in model.tables.buffers():
         assert t.device.type == "cpu"
     assert np.isfinite(model.fue).all() and model.fue.shape == (120, 4)
+
+
+def test_cpu_als_and_content_training_stays_on_the_cpu(small_inter):
+    """WMF, CER and VBPR on the CPU keep their tables there and hand back
+    host arrays."""
+    feat = np.random.default_rng(1).normal(
+        size=(small_inter.n_items, 12)).astype(np.float32)
+    for model in (WMF(k=4, block_size=64, device="cpu"),
+                  CER(k=4, d=12, block_size=64, device="cpu"),
+                  VBPR(k=4, d=12, lr=0.05, device="cpu")):
+        model.set_interactions(small_inter)
+        if model.d:
+            model.set_features(feat)
+        if isinstance(model, VBPR):
+            model.train(epochs=1, batch_size=32, epoch_sample_limit=64,
+                        scan_steps=2, verbose=False)
+        else:
+            model.train(max_iter=2, verbose=False)
+        for t in model.tables.buffers():
+            assert t.device.type == "cpu"
+        assert type(model.fie) is np.ndarray and np.isfinite(model.fie).all()

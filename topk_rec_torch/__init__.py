@@ -12,7 +12,10 @@ place of ``topk_rec_tpu/ops/topk_hybrid.py:55``. Its third slice adds BPR
 training (``train --model bpr``: the device sampler, sparse RMSProp, the
 model and npz checkpoints) and P1, the floor of K1 (``ops/topk_floor.py``,
 ``csrc/topk_floor.cu``), in place of the probe kernel of
-``benchmarks/probe_topk_floor.py:44``.
+``benchmarks/probe_topk_floor.py:44``. Its fourth slice adds the content
+and ALS trainers (``train --model vbpr|wmf|cer``: the batched weighted-ALS
+core, WMF, CER, VBPR, content loading) and ``profile_trace``; they run no
+kernel of their own, and their tables are scored through K1.
 
 Layout:
   device.py   device resolution and fp32 matmul settings
@@ -20,12 +23,17 @@ Layout:
               bitmap helpers), topk_hybrid (K2, the threshold-count audit
               of the exact hybrid top-k, and the approx selector),
               topk_floor (P1, K1's floor); and the training ops sampling
-              (triplets) and sparse_update (sparse RMSProp)
-  models/     Recommender and BPR (counterpart of topk_rec_tpu/models)
+              (triplets), sparse_update (sparse RMSProp) and als (batched
+              weighted-ALS half-sweeps)
+  models/     Recommender, BPR, VBPR, WMF and CER (counterpart of
+              topk_rec_tpu/models)
   checkpoint.py  npz checkpoints (counterpart of topk_rec_tpu/checkpoint.py)
+  profiling.py   torch.profiler traces (counterpart of
+              topk_rec_tpu/utils/profiling.py)
   eval/       on-device evaluation (counterpart of topk_rec_tpu/eval)
   serving.py  TopKServer (counterpart of topk_rec_tpu/serving.py)
-  interop.py  JAX-package parameters and BPR state <-> the port's tensors
+  interop.py  JAX-package parameters and BPR/VBPR state <-> the port's
+              tensors
   cli.py      ``train`` / ``evaluate`` / ``recommend`` (counterpart of
               topk_rec_tpu/cli.py)
 
@@ -45,6 +53,9 @@ _LAZY = {
     "exact_topk_hybrid": "topk_rec_torch.ops.topk_hybrid",
     "topk_floor": "topk_rec_torch.ops.topk_floor",
     "BPR": "topk_rec_torch.models.bpr",
+    "VBPR": "topk_rec_torch.models.vbpr",
+    "WMF": "topk_rec_torch.models.wmf",
+    "CER": "topk_rec_torch.models.cer",
     "TripletSampler": "topk_rec_torch.ops.sampling",
     "CheckpointManager": "topk_rec_torch.checkpoint",
     "from_jax_params": "topk_rec_torch.interop",

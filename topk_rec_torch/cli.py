@@ -3,8 +3,8 @@
 
 Counterpart of ``topk_rec_tpu/cli.py:66-405, 494-675``, with the same
 flags plus ``--device`` (default ``cuda``; there is no silent fallback to
-the CPU). ``train`` takes ``--model bpr``; the other models and ``--mesh``
-are not ported yet and exit with code 2. The backends are named for this
+the CPU). ``train`` takes ``--model bpr|vbpr|wmf|cer``; ``dpm`` and
+``--mesh`` are not ported yet and exit with code 2. The backends are named for this
 package: ``--engine {torch,kernel}`` stands for JAX's ``{xla,pallas}`` and
 ``--method {exact,approx,kernel,hybrid}`` for
 ``{exact,approx,pallas,hybrid}``; both default to ``kernel``, the fused
@@ -14,6 +14,8 @@ read by the shared ``topk_rec_tpu.data``, so the CSV lines match
 
 Usage:
   python -m topk_rec_torch.cli train --model bpr -d data -o embed/bpr
+  python -m topk_rec_torch.cli train --model cer -d data -o embed/cer \
+      --content meta.pkl --d 20000 --log-dir embed/cer
   python -m topk_rec_torch.cli evaluate -d data -m embed/bpr -f 0 -sl im om
   python -m topk_rec_torch.cli recommend -d data -m embed/bpr -k 30 u1 u2
   python -m topk_rec_torch.cli recommend ... --method hybrid u1 u2
@@ -43,7 +45,8 @@ _EC = EvalConfig()
 _MC = ModelConfig()
 _TC = TrainConfig()
 MODELS = ("bpr", "vbpr", "wmf", "cer", "dpm")  # the JAX CLI's choices
-PORTED_MODELS = ("bpr",)
+PORTED_MODELS = ("bpr", "vbpr", "wmf", "cer")
+CONTENT_MODELS = ("vbpr", "cer")
 
 
 def _load_fold(data_dir: str, fold: int):
@@ -113,33 +116,84 @@ def _device(name: str):
         raise _fail(str(e))
 
 
+def build_model(mc: ModelConfig, device):
+    """The configured model on ``device`` (cli.py:182-215)."""
+    from .models import BPR, CER, VBPR, WMF
+
+    if mc.model == "bpr":
+        return BPR(
+            k=mc.k, lambda_u=mc.lambda_u, lambda_i=mc.lambda_i,
+            lambda_j=mc.lambda_j, lambda_b=mc.lambda_b, lr=mc.lr,
+            mode=mc.mode, seed=mc.seed, membership=mc.membership,
+            device=device,
+        )
+    if mc.model == "vbpr":
+        return VBPR(
+            k=mc.k, d=mc.d, lambda_u=mc.lambda_u, lambda_i=mc.lambda_i,
+            lambda_j=mc.lambda_j, lambda_b=mc.lambda_b,
+            lambda_e=mc.lambda_e, lr=mc.lr, mode=mc.mode, seed=mc.seed,
+            membership=mc.membership, device=device,
+        )
+    if mc.model == "wmf":
+        return WMF(k=mc.k, lu=mc.als_lu, lv=mc.als_lv, a=mc.als_a,
+                   b=mc.als_b, seed=mc.seed, device=device)
+    if mc.model == "cer":
+        return CER(k=mc.k, d=mc.d, lu=mc.als_lu, lv=mc.als_lv, le=mc.als_le,
+                   a=mc.als_a, b=mc.als_b, seed=mc.seed, device=device)
+    raise SystemExit(f"unknown model {mc.model!r}")
+
+
 def train_from_config(cfg: TrainConfig, device="cuda"):
-    """Train the configured model on ``device``, export ``final-*.dat`` and
-    ``checkpoint.npz`` into ``cfg.out_dir`` and return the model
-    (cli.py:266-361, BPR only)."""
-    from .models import BPR
+    """Train the configured model on ``device``, export its files into
+    ``cfg.out_dir`` (``final-*.dat``, and ``checkpoint.npz`` or
+    ``final-E.dat`` where the model has them) and return the model
+    (cli.py:266-361)."""
+    from .profiling import profile_trace
 
     mc = cfg.model
     if mc.model not in PORTED_MODELS:
         raise _fail(f"--model {mc.model} is not yet ported to topk_rec_torch "
                     f"(ported: {', '.join(PORTED_MODELS)})")
-    device = _device(device)
-    model = BPR(
-        k=mc.k, lambda_u=mc.lambda_u, lambda_i=mc.lambda_i,
-        lambda_j=mc.lambda_j, lambda_b=mc.lambda_b, lr=mc.lr, mode=mc.mode,
-        seed=mc.seed, membership=mc.membership, device=device,
-    )
+    if cfg.theta_init and mc.model != "wmf":
+        # cer derives its item prior internally (F·E); a user theta would
+        # be silently ignored
+        raise SystemExit(
+            f"--theta-init is only consumed by --model wmf "
+            f"(got --model {mc.model})"
+        )
+    model = build_model(mc, _device(device))
     model.load_training_data(
         os.path.join(cfg.data.data_dir, cfg.data.uid_file),
         os.path.join(cfg.data.data_dir, cfg.data.iid_file),
         os.path.join(cfg.data.data_dir, cfg.data.train_file),
     )
-    model.train(
-        epochs=cfg.epochs, batch_size=cfg.batch_size,
-        epoch_sample_limit=cfg.epoch_sample_limit,
-        model_path=cfg.warm_start, ckpt_dir=cfg.ckpt_dir,
-        ckpt_every=cfg.ckpt_every,
-    )
+    if mc.model in CONTENT_MODELS:
+        if not cfg.data.content_file:
+            raise SystemExit(f"--content is required for {mc.model}")
+        model.load_content_data(
+            os.path.join(cfg.data.data_dir, cfg.data.content_file),
+            os.path.join(cfg.data.data_dir, cfg.data.iid_file),
+        )
+    save_dir = cfg.out_dir if cfg.save_lag else None
+    with profile_trace(cfg.profile_dir):
+        if mc.model in ("bpr", "vbpr"):
+            model.train(
+                epochs=cfg.epochs, batch_size=cfg.batch_size,
+                epoch_sample_limit=cfg.epoch_sample_limit,
+                model_path=cfg.warm_start, ckpt_dir=cfg.ckpt_dir,
+                ckpt_every=cfg.ckpt_every,
+            )
+        else:
+            extra = {}
+            if mc.model == "wmf" and cfg.theta_init:
+                # the cr solver's --theta_init: a raw [n_items, k] matrix
+                # in item-index order (cli.py:344-352)
+                extra["theta"] = read_dat(cfg.theta_init)
+            model.train(
+                max_iter=cfg.max_iter, tol=cfg.tol,
+                model_path=cfg.warm_start, log_dir=cfg.log_dir,
+                save_lag=cfg.save_lag, save_dir=save_dir, **extra,
+            )
     model.export_embeddings(cfg.out_dir)
     tprint(f"Exported embeddings to {cfg.out_dir}")
     return model
@@ -150,18 +204,29 @@ def cmd_train(args) -> int:
         raise _fail("--mesh (distributed training) is not yet ported to "
                     "topk_rec_torch")
     cfg = TrainConfig(
-        data=DataConfig(data_dir=args.data, fold=args.fold),
+        data=DataConfig(data_dir=args.data, fold=args.fold,
+                        content_file=args.content),
         model=ModelConfig(
-            model=args.model_name, k=args.k, lambda_u=args.lambda_u,
-            lambda_i=args.lambda_i, lambda_j=args.lambda_j,
-            lambda_b=args.lambda_b, lr=args.lr, mode=args.mode,
+            model=args.model_name, k=args.k, d=args.d,
+            lambda_u=args.lambda_u, lambda_i=args.lambda_i,
+            lambda_j=args.lambda_j, lambda_b=args.lambda_b,
+            lambda_e=args.lambda_e, lr=args.lr, mode=args.mode,
+            als_lu=args.als_lu,
+            als_lv=args.als_lv_wmf if args.model_name == "wmf" else args.als_lv,
+            als_le=args.als_le, als_a=args.als_a, als_b=args.als_b,
             seed=args.seed, membership=args.membership,
         ),
         out_dir=args.out,
         epochs=args.epochs,
         batch_size=args.batch_size,
         epoch_sample_limit=args.epoch_sample_limit,
+        max_iter=args.max_iter,
+        tol=args.tol,
         warm_start=args.warm_start,
+        log_dir=args.log_dir,
+        profile_dir=args.profile_dir,
+        save_lag=args.save_lag,
+        theta_init=args.theta_init,
         ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,
     )
@@ -249,32 +314,60 @@ def build_parser() -> argparse.ArgumentParser:
     pt = sub.add_parser("train", help="train a model and export embeddings")
     pt.add_argument("--model", dest="model_name", required=True,
                     choices=MODELS,
-                    help="bpr; the other models are not yet ported")
+                    help="bpr, vbpr, wmf or cer; dpm is not yet ported")
     pt.add_argument("-d", "--data", required=True)
     pt.add_argument("-o", "--out", required=True)
     pt.add_argument("-f", "--fold", type=int, default=0)
+    pt.add_argument("--content", default=None,
+                    help="content pickle filename (vbpr, cer)")
     pt.add_argument("--k", type=int, default=_MC.k)
+    pt.add_argument("--d", type=int, default=_MC.d,
+                    help="content feature width (vbpr, cer)")
     pt.add_argument("--epochs", type=int, default=_TC.epochs)
     pt.add_argument("--batch-size", type=int, default=_TC.batch_size)
     pt.add_argument("--epoch-sample-limit", type=int,
                     default=_TC.epoch_sample_limit)
+    pt.add_argument("--max-iter", type=int, default=_TC.max_iter,
+                    help="ALS iterations (wmf, cer)")
+    pt.add_argument("--tol", type=float, default=_TC.tol,
+                    help="ALS stop: relative loss change (wmf, cer)")
     pt.add_argument("--lr", type=float, default=_MC.lr)
     pt.add_argument("--mode", default=_MC.mode, choices=["l2", "l1"])
     pt.add_argument("--lambda-u", type=float, default=_MC.lambda_u)
     pt.add_argument("--lambda-i", type=float, default=_MC.lambda_i)
     pt.add_argument("--lambda-j", type=float, default=_MC.lambda_j)
     pt.add_argument("--lambda-b", type=float, default=_MC.lambda_b)
+    pt.add_argument("--lambda-e", type=float, default=_MC.lambda_e)
+    pt.add_argument("--als-lu", type=float, default=_MC.als_lu)
+    pt.add_argument("--als-lv", type=float, default=_MC.als_lv)
+    pt.add_argument("--als-lv-wmf", type=float, default=0.01,
+                    help="WMF uses lv=0.01 (ref wmf.py:11) vs CER's 10")
+    pt.add_argument("--als-le", type=float, default=_MC.als_le)
+    pt.add_argument("--als-a", type=float, default=_MC.als_a)
+    pt.add_argument("--als-b", type=float, default=_MC.als_b)
     pt.add_argument("--seed", type=int, default=_MC.seed)
     pt.add_argument("--membership", default=_MC.membership,
                     choices=["auto", "bitmap", "sorted"],
                     help="negative-sampling membership store (auto takes "
                     "the sorted keys when the bitmap would exceed 1 GiB)")
     pt.add_argument("--warm-start", default=_TC.warm_start)
+    pt.add_argument("--log-dir", default=_TC.log_dir,
+                    help="write state.log/settings.txt here (wmf, cer)")
+    pt.add_argument("--profile-dir", default=_TC.profile_dir,
+                    help="write a torch.profiler trace of training here")
     pt.add_argument("--ckpt-dir", default=_TC.ckpt_dir,
                     help="crash-resume checkpoints (tables + optimizer "
                     "state) every --ckpt-every epochs; rerunning the same "
                     "command resumes")
     pt.add_argument("--ckpt-every", type=int, default=_TC.ckpt_every)
+    pt.add_argument("--theta-init", default=_TC.theta_init,
+                    help="item-prior .dat matrix ([n_items, k], item-index "
+                    "order): inits V and enters every item solve as the "
+                    "lv-weighted prior (reference cr --theta_init); wmf "
+                    "only")
+    pt.add_argument("--save-lag", type=int, default=_TC.save_lag,
+                    help="dump %%04d-U/V.dat into -o every N ALS iterations "
+                    "(reference cr --save_lag)")
     pt.add_argument("--mesh", default=None,
                     help="distributed training: not yet ported")
     pt.add_argument("--device", default="cuda",

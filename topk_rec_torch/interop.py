@@ -6,7 +6,10 @@ The JAX package exports a trained model as host NumPy arrays: ``fue``,
 :func:`from_jax_params` moves them onto a torch device as the inputs of
 ``TopKServer`` (and of the evaluator, which takes the same three tables).
 :func:`bpr_from_jax` and :func:`bpr_to_jax` carry a BPR's whole training
-state (tables and RMSProp accumulators) between the two packages.
+state (tables and RMSProp accumulators) between the two packages, and
+:func:`vbpr_from_jax` / :func:`vbpr_to_jax` a VBPR's. WMF and CER need no
+converter: their state is the host arrays ``fue``, ``fie`` and ``E`` in
+both packages.
 """
 
 from __future__ import annotations
@@ -68,10 +71,30 @@ def bpr_from_jax(model, params, ms) -> None:
 
 
 def bpr_to_jax(model):
-    """``(params, ms)`` of the port's ``BPR`` as the JAX BPR's ``_params``
-    and ``_ms`` dictionaries of numpy arrays (convert them with
-    ``jnp.asarray`` on the JAX side)."""
+    """``(params, ms)`` of the port's ``BPR`` (or ``VBPR``) as the JAX
+    model's ``_params`` and ``_ms`` dictionaries of numpy arrays (convert
+    them with ``jnp.asarray`` on the JAX side)."""
     def host(tree):
         return {n: t.detach().cpu().numpy().copy() for n, t in tree.items()}
 
     return host(model.tables.params()), host(model.tables.ms())
+
+
+def vbpr_from_jax(model, params, ms) -> None:
+    """Load a JAX VBPR's state into the port's ``VBPR`` ``model``.
+
+    ``params`` and ``ms`` are the JAX model's ``_params`` and ``_ms``
+    dictionaries ({"ure", "uce", "ire", "irb", "cem", "icb"}), as numpy
+    arrays. ``model`` must have its training data and features set; its
+    tables are replaced and its exported host tables follow.
+    """
+    from .models.vbpr import NAMES, VBPRTables
+
+    model.tables = VBPRTables(
+        {n: torch.from_numpy(np.asarray(params[n], np.float32))
+         for n in NAMES}).to(model.device)
+    model.tables.load(ms=ms)
+    model._sync_host()
+
+
+vbpr_to_jax = bpr_to_jax  # VBPRTables has BPRTables' params()/ms()

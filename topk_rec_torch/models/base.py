@@ -21,15 +21,15 @@ from typing import Dict, Optional
 import numpy as np
 
 from topk_rec_tpu.data.dataset import Interactions
-from topk_rec_tpu.data.io import read_dat, write_dat
+from topk_rec_tpu.data.io import load_features, read_dat, write_dat
 from topk_rec_tpu.utils import tprint
 
 from ..device import resolve_device
 
 
 class Recommender(ABC):
-    """Base of the port's models: data loading, ``.dat`` / ``checkpoint.npz``
-    export and import, and host scoring."""
+    """Base of the port's models: data and content loading, ``.dat`` /
+    ``checkpoint.npz`` export and import, and host scoring."""
 
     def __init__(self, k: int, device="cuda"):
         self.k = k
@@ -39,6 +39,8 @@ class Recommender(ABC):
         self.iids: Optional[Dict[str, int]] = None
         self.n_users = 0
         self.n_items = 0
+        self.feat: Optional[np.ndarray] = None  # [n_items, d] host features
+        self.d = 0
         self.fue: Optional[np.ndarray] = None
         self.fie: Optional[np.ndarray] = None
         self.fib: Optional[np.ndarray] = None
@@ -66,6 +68,22 @@ class Recommender(ABC):
 
     def _on_data_loaded(self) -> None:
         """Hook for subclasses to build their device layouts."""
+
+    def load_content_data(self, content_file: str, iid_file: str) -> None:
+        """Read pickled item features with the shared ``load_features``:
+        rows aligned to the item index, zero rows for items the file lacks,
+        ``self.d`` columns when it is set (base.py:77-84)."""
+        tprint(f"Load content data from {content_file}")
+        if self.iids is None:
+            raise ValueError("load_training_data must run first")
+        self.set_features(load_features(content_file, iid_file, self.iids,
+                                        d=self.d or None))
+        tprint("Loading finished!")
+
+    def set_features(self, feat: np.ndarray) -> None:
+        """Host features [n_items, d] (float32); sets ``d``."""
+        self.feat = np.asarray(feat, dtype=np.float32)
+        self.d = self.feat.shape[1]
 
     @abstractmethod
     def train(self, *args, **kwargs) -> None: ...
