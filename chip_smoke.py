@@ -6,16 +6,25 @@ Phases (each prints one result line; any failure raises and exits non-zero
 without the final ``ok`` line):
 
 1. identify the card (``nvidia-smi`` name and power limit, torch and CUDA);
-2. build the kernels K1 (fused top-k) and K2 (threshold count) from
-   ``topk_rec_torch/csrc`` with nvcc, one process per source;
+2. build the kernels K1 (fused top-k), K2 (threshold count) and P1 (K1's
+   floor) from ``topk_rec_torch/csrc`` with nvcc, one process per source,
+   then the port's C++ fold parser with g++;
 3. compare K1 with its plain PyTorch twin on the card, exact (fp32) and
    serving (bf16) mode, on ragged shapes, no bias, rows with fewer than k
-   unseen items, an all-ties row, k = 1 and k = 128, and the full-width
-   eval chunk (8,192 users x 10,380 items, d = 50, k = 30), with CUDA-event
-   medians of both;
+   unseen items, an all-ties row, k = 1 and k = 128 (over catalog splits),
+   d = 13, 50, 64, 100 and 1024, scores that rise with the item index, and
+   the full-width eval chunk (8,192 users x 10,380 items, d = 50, k = 30).
+   At full width, CUDA-event medians of K1 (on tables padded as the
+   evaluator and the server hold them), its twin and the library
+   composition (``addmm``, ``masked_fill_``, ``topk``), the bound of the
+   work and the profiler's device time of K1's passes; in bf16 also the
+   call on fp32 tables that the wrapper casts and pads (``cast_ms``).
+   Then K1 on rising scores at 8,192;
 4. compare K2 with its twin in both modes (ragged, no bias, all ties, rows
    with fewer than k unseen, t from the exact top-k so that ties sit at the
-   threshold), and time both at 256 and 8,192 users at full width;
+   threshold, d up to 1024, rising scores), and time it, its twin and the
+   library composition at 256 and 8,192 users at full width, with the
+   bound;
 5. compare ``exact_topk_hybrid`` with K1 and K1's twin at 256 and 8,192
    users, at the defaults and at settings that force repairs (k_extra = 0,
    recall = 0.8, cap = 32), printing the repaired rows and its time;
@@ -24,16 +33,20 @@ without the final ``ok`` line):
    items in the reference file formats with seeded ``final-U/V/B.dat``
    (d = 50); ``evaluate -sl im om`` with ``--engine kernel`` and ``torch``,
    ``recommend -k 30`` with ``--method kernel``, ``exact``, ``hybrid`` and
-   ``approx`` for 256 users. K1's launch counter must rise in each kernel
+   ``approx`` for 256 users. The fold must be read by the port's C++
+   parser. K1's launch counter must rise in each kernel
    run and K2's in the hybrid run; the engines must agree, the exact
    methods' recommendations must match a float64 NumPy reference, and the
    approx lists must be valid with a mean recall@30 of at least 0.9. Then
-   each method's served-batch time at 256 and 8,192 users;
+   each method's served-batch time at 256 and 8,192 users, the kernel
+   methods also with U and V cast and padded in every batch;
 7. "floor": compare P1 (the per-residue running max, the floor of K1)
    with its plain version in both modes and both variants (value only,
    value + index) on a ragged shape, no bias, a fully masked row, all ties,
    fewer items than residues and the probe's full shape (69,878 x 10,380,
-   d = 50, 2 % masked); then, with the counts at 0, the probe itself:
+   d = 50, 2 % masked), where its twin, the library composition (scores
+   padded to 128 columns, ``amax`` over each residue) and the bound are
+   timed too; then, with the counts at 0, the probe itself:
    CUDA-event medians of P1-A, P1-B, K1 at k = 1 and K1 at k = 30 on all
    69,878 users in both modes;
 8. "train": ``train --model bpr --k 50 --batch-size 256`` for two epochs
@@ -60,7 +73,9 @@ without the final ``ok`` line):
    on zom for VBPR and CER. Then the layers' times: VBPR ms and launches
    per step, one ALS half-sweep per side, CER's E-solve and its CG steps.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (per kernel: its
+launches on the main path, max error against its twin, and ms, plain_ms,
+library_ms, bound_ms and bound_by at its main shape); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -136,6 +151,68 @@ def cuda_median_ms(fn, reps=15, warmup=3) -> float:
     return statistics.median(times)
 
 
+# Published peaks of one H100 SXM (dense, at the full 700 W): float32 outside
+# the tensor cores, bf16 on them, and the HBM3 rate.
+PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_BYTES = 3.35e12
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def table_bytes(exact, *tables) -> int:
+    """Bytes of [n, d] tables at their real width d in the mode's element
+    type (4 in fp32, 2 in bf16): what the function must read, not the zero
+    columns of the kernels' padded copies."""
+    return sum(t.shape[0] * t.shape[1] * (4 if exact else 2) for t in tables)
+
+
+def bound(flops, n_bytes, bf16):
+    """(bound_ms, bound_by): the larger of the operations over the peak
+    rate of their type and the bytes (each input read once, each output
+    written once) over the memory rate."""
+    ops_ms = flops / (PEAK_BF16 if bf16 else PEAK_FP32) * 1e3
+    mem_ms = n_bytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
+
+
+def library_scores(U, V, b, mask, exact):
+    """U·Vᵀ + bias by one library product with the seen items at NEG_INF:
+    fp32 (TF32 off) in the exact mode, the serving ``exact`` method's
+    arithmetic (serving.py: bf16-rounded tables, fp32 product) otherwise.
+    The yardstick of the kernels; the port never calls it."""
+    from topk_rec_torch.ops.topk_fused import NEG_INF
+
+    if exact:
+        s = torch.addmm(b, U, V.T) if b is not None else U @ V.T
+    else:
+        s = U.bfloat16().float() @ V.bfloat16().float().T
+        if b is not None:
+            s = s + b[None, :]
+    return s.masked_fill_(mask, NEG_INF)
+
+
+def k1_library(U, V, b, mask, k, exact):
+    return torch.topk(library_scores(U, V, b, mask, exact), k)
+
+
+def k2_library(U, V, b, mask, t, exact):
+    s = library_scores(U, V, b, mask, exact)
+    tc = t[:, None]
+    eps = torch.maximum(tc.abs(), s.abs()) * 1e-4 + 1e-6
+    return (s > tc + eps).sum(1), ((s - tc).abs() <= eps).sum(1)
+
+
+def p1_library(U, V, b, mask, exact):
+    from topk_rec_torch.ops.topk_fused import NEG_INF
+
+    s = library_scores(U, V, b, mask, exact)
+    s = torch.nn.functional.pad(s, (0, (-s.shape[1]) % 128), value=NEG_INF)
+    return s.view(s.shape[0], -1, 128).amax(1)
+
+
 def compare_topk(got, want):
     """(max value error, index mismatches) of one top-k against another.
 
@@ -182,30 +259,55 @@ def make_case(dev, n_u, n_i, d, seed, bias=True, ties=False):
             pack_mask(mask).to(dev))
 
 
+def rising_case(dev, n_u, n_i, d):
+    """Scores that rise with the item index in every row (no bias, nothing
+    excluded): every tile beats every row's k-th entry, K1's worst case."""
+    U = torch.zeros(n_u, d)
+    V = torch.zeros(n_i, d)
+    U[:, 0] = 1.0
+    V[:, 0] = torch.arange(n_i) / n_i
+    return (U.to(dev), V.to(dev), None,
+            torch.zeros(n_u, (n_i + 31) // 32, dtype=torch.int32, device=dev))
+
+
+# (n_u, n_i, d, k, bias, ties); "rise" in place of bias: rising_case
+KERNEL_CASES = [
+    (37, 301, 13, 8, True, False),      # ragged: n_u, n_i % 32, d % 4
+    (130, 1000, 50, 30, False, False),  # no bias
+    (5, 4173, 50, 128, True, False),    # k = 128 over a catalog split
+    (45, 9000, 50, 128, True, False),   # k = 128, n_u % 64 != 0, splits
+    (3, 100, 2, 1, True, False),        # k = 1
+    (16, 700, 2, 6, False, True),       # all-ties rows
+    (33, 2000, 64, 30, True, False),    # d = 64: one slice, no padding
+    (70, 3000, 100, 30, True, False),   # d = 100: slices
+    (40, 1500, 1024, 30, True, False),  # d = 1024, the kernels' limit
+    (50, 5000, 1024, 128, True, False),  # d = 1024 and k = 128
+    (300, 6000, 50, 30, "rise", False),  # rising scores: every tile passes
+    (256, N_ITEMS, DIM, TOP_K, True, False),   # serving batch
+    (8192, N_ITEMS, DIM, TOP_K, True, False),  # full-width chunk
+]
+
+
 def kernel_cases(dev):
-    """Phase 3: K1 against its twin; returns (max_abs_err, ms, plain_ms)."""
+    """Phase 3: K1 against its twin; the full-width shapes also timed, on
+    tables held as the evaluator and the server hold them
+    (``kernel_table``), beside the twin, the library composition and the
+    bound. Returns (max_abs_err, {(n_u, mode): timing fields})."""
     from topk_rec_torch.ops.topk_fused import (
+        expand_seen_mask,
         fused_score_topk,
         fused_score_topk_plain,
+        kernel_table,
     )
 
-    def make(n_u, n_i, d, seed, bias=True, ties=False):
-        return make_case(dev, n_u, n_i, d, seed, bias, ties)
-
-    cases = [  # (n_u, n_i, d, k, bias, ties)
-        (37, 301, 13, 8, True, False),      # ragged, n_i % 32 != 0
-        (130, 1000, 50, 30, False, False),  # no bias
-        (5, 4173, 50, 128, True, False),    # k = 128, split merge
-        (3, 100, 2, 1, True, False),        # k = 1
-        (16, 700, 2, 6, False, True),       # all-ties rows
-        (256, N_ITEMS, DIM, TOP_K, True, False),   # serving batch
-        (8192, N_ITEMS, DIM, TOP_K, True, False),  # full-width chunk
-    ]
     worst = 0.0
     times = {}
-    for n_u, n_i, d, k, bias, ties in cases:
-        U, V, b, words = make(n_u, n_i, d, seed=n_u * 7 + n_i, bias=bias,
-                              ties=ties)
+    for n_u, n_i, d, k, bias, ties in KERNEL_CASES:
+        if bias == "rise":
+            U, V, b, words = rising_case(dev, n_u, n_i, d)
+        else:
+            U, V, b, words = make_case(dev, n_u, n_i, d, seed=n_u * 7 + n_i,
+                                       bias=bias, ties=ties)
         for exact in (True, False):
             got = fused_score_topk(U, V, b, words, k, exact_matmul=exact)
             want = fused_score_topk_plain(U, V, b, words, k,
@@ -220,22 +322,76 @@ def kernel_cases(dev):
             fields = dict(n_u=n_u, n_i=n_i, d=d, k=k, mode=mode,
                           max_abs_err=err, mismatches=mism)
             if n_i == N_ITEMS:
-                tk = cuda_median_ms(
-                    lambda: fused_score_topk(U, V, b, words, k,
-                                             exact_matmul=exact))
-                tp = cuda_median_ms(
-                    lambda: fused_score_topk_plain(U, V, b, words, k,
-                                                   exact_matmul=exact))
-                times[(n_u, mode)] = (tk, tp)
-                fields.update(kernel_ms=f"{tk:.4f}", plain_ms=f"{tp:.4f}")
+                Up, Vp = kernel_table(U, exact), kernel_table(V, exact)
+                mask = expand_seen_mask(words, n_i) != 0
+                t = dict(
+                    ms=cuda_median_ms(lambda: fused_score_topk(
+                        Up, Vp, b, words, k, exact_matmul=exact)),
+                    plain_ms=cuda_median_ms(lambda: fused_score_topk_plain(
+                        U, V, b, words, k, exact_matmul=exact)),
+                    library_ms=cuda_median_ms(lambda: k1_library(
+                        U, V, b, mask, k, exact)),
+                )
+                t["bound_ms"], t["bound_by"] = bound(
+                    2 * n_u * n_i * d,
+                    table_bytes(exact, U, V) + nbytes(b, words, *got),
+                    not exact)
+                times[(n_u, mode)] = t
+                fields.update({n: (f"{v:.4f}" if isinstance(v, float) else v)
+                               for n, v in t.items()})
+                fields.update(device_us(lambda: fused_score_topk(
+                    Up, Vp, b, words, k, exact_matmul=exact)))
+                if not exact:  # fp32 tables, cast and padded in the call
+                    fields["cast_ms"] = "%.4f" % cuda_median_ms(
+                        lambda: fused_score_topk(U, V, b, words, k,
+                                                 exact_matmul=False))
             phase("k1_vs_plain", **fields)
+    k1_rising(dev)
     return worst, times
 
 
-K2_CASES = [  # (n_u, n_i, d, k, bias, ties)
+def device_us(fn, reps=10):
+    """Mean device time per call of each kernel that ``fn`` launches
+    (torch.profiler's CUDA events), keyed by a short kernel name, in us;
+    the CUDA-event medians elsewhere also hold the host's dispatch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"topk_pass1|topk_merge|count_pass", e.key)
+        us = getattr(e, "device_time_total", 0)
+        if m and us > 0:
+            out[m.group(0) + "_us"] = f"{us / reps:.1f}"
+    return out or {"device": "not measured"}
+
+
+def k1_rising(dev):
+    """K1 fp32 on the full-width chunk with scores that rise with the item
+    index: every tile beats every row's k-th entry, its worst case."""
+    from topk_rec_torch.ops.topk_fused import fused_score_topk, kernel_table
+
+    U, V, b, words = rising_case(dev, 8192, N_ITEMS, DIM)
+    Up, Vp = kernel_table(U, True), kernel_table(V, True)
+    ms = cuda_median_ms(lambda: fused_score_topk(Up, Vp, b, words, TOP_K),
+                        reps=5, warmup=1)
+    phase("k1_rising", n_u=8192, n_i=N_ITEMS, d=DIM, k=TOP_K, mode="fp32",
+          ms=f"{ms:.4f}")
+
+
+K2_CASES = [  # (n_u, n_i, d, k, bias, ties); "rise": rising_case
     (37, 301, 13, 8, True, False),      # ragged, n_i % 32 != 0
     (130, 1000, 50, 30, False, False),  # no bias
     (16, 700, 2, 6, False, True),       # all-ties rows
+    (33, 2000, 64, 30, True, False),    # d = 64
+    (70, 3000, 100, 30, True, False),   # d = 100: slices
+    (50, 5000, 1024, 128, True, False),  # d = 1024, k = 128
+    (300, 6000, 50, 30, "rise", False),  # rising scores
     (256, N_ITEMS, DIM, TOP_K, True, False),   # serving batch
     (8192, N_ITEMS, DIM, TOP_K, True, False),  # full-width chunk
 ]
@@ -248,9 +404,12 @@ def k2_cases(dev):
     elements whose twin score lies within 1e-5·max(1, |s|) of t ± eps,
     where the two summation orders can fall on either side.
 
-    Returns (largest count difference, {(n_u, mode): (ms, plain_ms)})."""
+    Returns (largest count difference, {(n_u, mode): timing fields}), the
+    full-width shapes timed as in phase 3."""
     from topk_rec_torch.ops.topk_fused import (
+        expand_seen_mask,
         fused_score_topk_plain,
+        kernel_table,
         masked_scores,
     )
     from topk_rec_torch.ops.topk_hybrid import (
@@ -261,8 +420,12 @@ def k2_cases(dev):
     worst = 0
     times = {}
     for n_u, n_i, d, k, bias, ties in K2_CASES:
-        U, V, b, words = make_case(dev, n_u, n_i, d, seed=n_u * 11 + n_i,
-                                   bias=bias, ties=ties)
+        if bias == "rise":
+            U, V, b, words = rising_case(dev, n_u, n_i, d)
+        else:
+            U, V, b, words = make_case(dev, n_u, n_i, d,
+                                       seed=n_u * 11 + n_i, bias=bias,
+                                       ties=ties)
         for exact in (True, False):
             t = fused_score_topk_plain(U, V, b, words, k, exact)[0][:, k - 1]
             t = t.contiguous()
@@ -290,13 +453,28 @@ def k2_cases(dev):
                           borderline=int(near.sum()),
                           ninf_rows=int((t <= -3.0e38).sum()))
             if n_i == N_ITEMS:
-                tk = cuda_median_ms(
-                    lambda: count_vs_threshold(U, V, b, words, t, exact))
-                tp = cuda_median_ms(
-                    lambda: count_vs_threshold_plain(U, V, b, words, t,
-                                                     exact))
-                times[(n_u, mode)] = (tk, tp)
-                fields.update(kernel_ms=f"{tk:.4f}", plain_ms=f"{tp:.4f}")
+                Up, Vp = kernel_table(U, exact), kernel_table(V, exact)
+                mask = expand_seen_mask(words, n_i) != 0
+                tm = dict(
+                    ms=cuda_median_ms(lambda: count_vs_threshold(
+                        Up, Vp, b, words, t, exact)),
+                    plain_ms=cuda_median_ms(lambda: count_vs_threshold_plain(
+                        U, V, b, words, t, exact)),
+                    library_ms=cuda_median_ms(lambda: k2_library(
+                        U, V, b, mask, t, exact)),
+                )
+                tm["bound_ms"], tm["bound_by"] = bound(
+                    2 * n_u * n_i * d,
+                    table_bytes(exact, U, V) + nbytes(b, words, t, *got),
+                    not exact)
+                times[(n_u, mode)] = tm
+                fields.update({n: (f"{v:.4f}" if isinstance(v, float) else v)
+                               for n, v in tm.items()})
+                fields.update(device_us(lambda: count_vs_threshold(
+                    Up, Vp, b, words, t, exact)))
+                if not exact:  # fp32 tables, cast and padded in the call
+                    fields["cast_ms"] = "%.4f" % cuda_median_ms(
+                        lambda: count_vs_threshold(U, V, b, words, t, False))
             phase("k2_vs_plain", **fields)
     return worst, times
 
@@ -378,8 +556,10 @@ def compare_floor(got, want, U, V, b, words, exact):
 
 def floor_cases(dev):
     """Phase 7a: P1 against its plain version, both modes, both variants.
-    Returns (max_abs_err, plain_ms of P1-A fp32 at the probe's shape)."""
+    Returns (max_abs_err, {plain_ms, library_ms, bound_ms, bound_by} of
+    P1-A fp32 at the probe's shape)."""
     from topk_rec_torch.ops.topk_floor import topk_floor, topk_floor_plain
+    from topk_rec_torch.ops.topk_fused import expand_seen_mask
 
     cases = [  # (n_u, n_i, d, bias, ties)
         (37, 301, 13, True, False),      # ragged: n_i % 32, n_i % 128 != 0
@@ -389,7 +569,7 @@ def floor_cases(dev):
         (N_USERS, N_ITEMS, DIM, True, False),  # the probe's full shape
     ]
     worst = 0.0
-    plain_ms = None
+    yard = {}
     for n_u, n_i, d, bias, ties in cases:
         if n_u == N_USERS:
             U, V, b, words = probe_case(dev)
@@ -414,11 +594,22 @@ def floor_cases(dev):
                               else "bf16", variant="B" if with_index else "A",
                               max_abs_err=err, mismatches=mism)
                 if n_u == N_USERS and exact and not with_index:
-                    plain_ms = cuda_median_ms(lambda: topk_floor_plain(
-                        U, V, b, words, exact), reps=7, warmup=2)
-                    fields.update(plain_ms=f"{plain_ms:.4f}")
+                    mask = expand_seen_mask(words, n_i) != 0
+                    yard = dict(
+                        plain_ms=cuda_median_ms(lambda: topk_floor_plain(
+                            U, V, b, words, exact), reps=7, warmup=2),
+                        library_ms=cuda_median_ms(lambda: p1_library(
+                            U, V, b, mask, exact), reps=7, warmup=2),
+                    )
+                    del mask
+                    yard["bound_ms"], yard["bound_by"] = bound(
+                        2 * n_u * n_i * d,
+                        table_bytes(True, U, V) + nbytes(b, words, *got),
+                        False)
+                    fields.update({n: (f"{v:.4f}" if isinstance(v, float)
+                                       else v) for n, v in yard.items()})
                 phase("floor_vs_plain", **fields)
-    return worst, plain_ms
+    return worst, yard
 
 
 def floor_path(dev):
@@ -555,6 +746,7 @@ def main_path(dev, root):
     data, model = root, os.path.join(root, "model")
     launches = 0
     csv = {}
+    from topk_rec_torch.data import parser
     for engine in ("kernel", "torch"):
         fused_score_topk.launches = 0
         lines, wall = run_cli(["evaluate", "-d", data, "-m", model, "-f", "0",
@@ -566,7 +758,10 @@ def main_path(dev, root):
         launches += n
         csv[engine] = lines
         phase("evaluate", engine=engine, wall_s=f"{wall:.3f}", launches=n,
-              csv="|".join(lines))
+              parser=parser(), csv="|".join(lines))
+        if parser() != "native":
+            raise AssertionError("the fold was not read by the port's C++ "
+                                 "parser")
     # accuracies agree within 2/count per bucket (count = liked items)
     for lk, lt in zip(csv["kernel"], csv["torch"]):
         sk, *ak = lk.split(",")
@@ -822,18 +1017,27 @@ def train_rate(dev, root):
 def serve_latency(root, dev):
     """CUDA-event medians of one served batch per method (the device time
     of ``recommend_async``; ``hybrid`` includes its host sync) at 256 and
-    8,192 users, on the fold and tables as ``recommend`` loads them."""
+    8,192 users, on the fold and tables as ``recommend`` loads them; the
+    kernel methods also without the server's padded bf16 tables, so that
+    the wrapper casts and pads U and V in every batch (``*_cast_ms``)."""
     from topk_rec_torch.cli import _load_fold, _read_model
     from topk_rec_torch.serving import METHODS, TopKServer
 
     inter, uids, iids = _load_fold(root, 0)
     U, V, B = _read_model(os.path.join(root, "model"), uids, iids)
     srv = TopKServer(U, V, B, inter, device=dev)
+    held = srv.U_kernel, srv.V_kernel
     rng = np.random.default_rng(4)
     for n in (256, 8192):
         uids = rng.choice(N_USERS, n, replace=False)
-        ms = {m: cuda_median_ms(lambda: srv.recommend_async(uids, TOP_K, m))
-              for m in METHODS}
+        ms = {}
+        for m in METHODS:
+            ms[m] = cuda_median_ms(lambda: srv.recommend_async(uids, TOP_K, m))
+            if m in ("kernel", "hybrid"):
+                srv.U_kernel = srv.V_kernel = None
+                ms[m + "_cast"] = cuda_median_ms(
+                    lambda: srv.recommend_async(uids, TOP_K, m))
+                srv.U_kernel, srv.V_kernel = held
         phase("serve_latency", users=n,
               **{f"{m}_ms": f"{t:.4f}" for m, t in ms.items()})
 
@@ -1151,11 +1355,17 @@ def main() -> int:
     _build.load_library()
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
           nvcc_seconds=_build.build_seconds, hash=_build.source_hash())
+    from topk_rec_torch.native import io_native
+
+    t0 = time.perf_counter()
+    if not io_native.available():
+        raise AssertionError("the port's C++ parser did not build")
+    phase("build_parser", seconds=f"{time.perf_counter() - t0:.2f}")
 
     max_err, times = kernel_cases(dev)
-    tk, tp = times[(8192, "fp32")]
+    k1 = times[(8192, "fp32")]     # one evaluate chunk
     k2_err, k2_times = k2_cases(dev)
-    k2_ms, k2_plain_ms = k2_times[(256, "bf16")]  # recommend's shape
+    k2 = k2_times[(256, "bf16")]   # recommend's shape
     hybrid_cases(dev)
 
     root = tempfile.mkdtemp(prefix=".smoke_", dir=ROOT)
@@ -1163,7 +1373,7 @@ def main() -> int:
         launches, count_launches, (pu, pi) = main_path(dev, root)
         if launches <= 0 or count_launches <= 0:
             raise AssertionError("the main path never launched K1 or K2")
-        floor_err, floor_plain_ms = floor_cases(dev)
+        floor_err, floor_yard = floor_cases(dev)
         floor_launches, floor_ms = floor_path(dev)
         if floor_launches <= 0:
             raise AssertionError("the floor probe never launched P1")
@@ -1188,8 +1398,7 @@ def main() -> int:
         "replaces": "topk_rec_tpu/ops/topk_pallas.py:119",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": tk,
-        "plain_ms": tp,
+        **k1,
     }, {
         "name": "topk_count",
         "route": "cuda",
@@ -1197,8 +1406,7 @@ def main() -> int:
         "replaces": "topk_rec_tpu/ops/topk_hybrid.py:55",
         "launches": count_launches,
         "max_abs_err": k2_err,
-        "ms": k2_ms,
-        "plain_ms": k2_plain_ms,
+        **k2,
     }, {
         "name": "topk_floor",
         "route": "cuda",
@@ -1207,7 +1415,7 @@ def main() -> int:
         "launches": floor_launches,
         "max_abs_err": floor_err,
         "ms": floor_ms,
-        "plain_ms": floor_plain_ms,
+        **floor_yard,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

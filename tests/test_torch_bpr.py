@@ -33,11 +33,18 @@ from topk_rec_tpu.models import BPR as JaxBPR
 from topk_rec_tpu.models.bpr import _pairwise_loss as jax_loss
 from topk_rec_tpu.ops import sparse_update as jsu
 from topk_rec_torch.checkpoint import CheckpointManager
+from topk_rec_torch.data import Interactions as PortInteractions
 from topk_rec_torch.interop import bpr_from_jax, bpr_to_jax
 from topk_rec_torch.models import BPR
 from topk_rec_torch.models.bpr import BPRTables, _pairwise_loss, run_chunk
 
 DAT_TOL = dict(rtol=0, atol=6e-7)
+
+
+def _port(inter):
+    """The port's own Interactions over the same arrays as ``inter``."""
+    return PortInteractions(inter.n_users, inter.n_items, inter.pos_u,
+                            inter.pos_i, inter.seen_u, inter.seen_i)
 
 
 @pytest.fixture(scope="module")
@@ -132,7 +139,7 @@ def test_one_chunk_equals_jax_step(small_inter, mode):
               "ib": _rows(2, n_i, 1)[:, 0]}
     ms = {n: np.abs(v[::-1]) + 0.01 for n, v in params.items()}
     model = BPR(k=k, lambda_b=0.01, lr=0.05, mode=mode, device="cpu")
-    model.set_interactions(small_inter)
+    model.set_interactions(_port(small_inter))
     u, i, j = model.sample_chunk(torch.Generator().manual_seed(4), steps,
                                  batch)
     hyper = model.hyper()
@@ -156,7 +163,7 @@ def test_crash_resume_reproduces_uninterrupted_run(small_inter, tmp_path):
     the same tables (per-epoch generators, accumulators restored)."""
     def make():
         m = BPR(k=6, lr=0.05, seed=11, device="cpu")
-        m.set_interactions(small_inter)
+        m.set_interactions(_port(small_inter))
         return m
 
     straight = make()
@@ -202,7 +209,7 @@ def test_interchange_port_to_jax(fold, tmp_path):
     """The JAX BPR imports the port's final-*.dat and checkpoint.npz."""
     tr, _ = fold
     port = BPR(k=8, lr=0.05, seed=5, device="cpu")
-    port.set_interactions(tr)
+    port.set_interactions(_port(tr))
     port.train(epochs=1, batch_size=128, verbose=False)
     port.export_embeddings(str(tmp_path))
     assert {"final-U.dat", "final-V.dat", "final-B.dat",
@@ -226,7 +233,7 @@ def test_interchange_jax_to_port(fold, tmp_path):
     jm.train(epochs=1, batch_size=128, verbose=False)
     jm.export_embeddings(str(tmp_path))
     port = BPR(k=8, device="cpu")
-    port.set_interactions(tr)
+    port.set_interactions(_port(tr))
     port.import_embeddings(str(tmp_path))
     np.testing.assert_allclose(port.fue, jm.fue, **DAT_TOL)
     np.testing.assert_allclose(port.fib, jm.fib, **DAT_TOL)
@@ -235,7 +242,7 @@ def test_interchange_jax_to_port(fold, tmp_path):
     for name in ("ue", "ie", "ib"):
         np.testing.assert_array_equal(ms[name], np.asarray(jm._ms[name]))
     warm = BPR(k=8, lr=0.05, seed=6, device="cpu")
-    warm.set_interactions(tr)
+    warm.set_interactions(_port(tr))
     warm.train(epochs=0, batch_size=128, model_path=str(tmp_path),
                verbose=False)
     np.testing.assert_allclose(warm.fue, jm.fue, **DAT_TOL)
@@ -251,7 +258,7 @@ def test_interop_state_roundtrip(small_inter):
               "ib": _rows(2, n_i, 1)[:, 0]}
     ms = {n: np.abs(v) * 0.5 for n, v in params.items()}
     model = BPR(k=k, device="cpu")
-    model.set_interactions(small_inter)
+    model.set_interactions(_port(small_inter))
     bpr_from_jax(model, params, ms)
     got_p, got_ms = bpr_to_jax(model)
     for want, got in ((params, got_p), (ms, got_ms)):
@@ -284,7 +291,7 @@ def test_trained_accuracy_within_seed_variance_of_jax(fold):
     got = {"port": [], "jax": [], "base": []}
     for seed in (3, 4, 5):
         port = BPR(k=16, lr=0.05, seed=seed, device="cpu")
-        port.set_interactions(tr)
+        port.set_interactions(_port(tr))
         port.train(epochs=4, batch_size=256, verbose=False)
         got["port"].append(_acc30(port, tr, likes))
         jm = JaxBPR(k=16, lr=0.05, seed=seed)
@@ -292,7 +299,7 @@ def test_trained_accuracy_within_seed_variance_of_jax(fold):
         jm.train(epochs=4, batch_size=256, verbose=False)
         got["jax"].append(_acc30(jm, tr, likes))
         base = BPR(k=16, seed=seed, device="cpu")
-        base.set_interactions(tr)
+        base.set_interactions(_port(tr))
         base.train(epochs=0, verbose=False)
         got["base"].append(_acc30(base, tr, likes))
     port, jx, base = (np.array(got[n]) for n in ("port", "jax", "base"))

@@ -12,6 +12,7 @@ import torch
 
 import topk_rec_torch
 from topk_rec_torch import cli as torch_cli
+from topk_rec_torch.data import Interactions as PortInteractions
 from topk_rec_torch.device import resolve_device
 from topk_rec_torch.eval import device as tdev
 from topk_rec_torch.models import BPR, CER, VBPR, WMF
@@ -25,25 +26,39 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "topk_rec_torch")
 
 
+def _port(inter):
+    """The port's own Interactions over the same arrays as ``inter``."""
+    return PortInteractions(inter.n_users, inter.n_items, inter.pos_u,
+                            inter.pos_i, inter.seen_u, inter.seen_i)
+
+
+def _port_modules():
+    """Every module of the port, by its dotted name."""
+    names = []
+    for dirpath, _, files in os.walk(PKG):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, name), ROOT)
+                mod = rel[:-3].replace(os.sep, ".")
+                names.append(mod[:-len(".__init__")]
+                             if mod.endswith(".__init__") else mod)
+    return sorted(names)
+
+
 def test_imports_without_jax():
+    """The port imports with jax and the JAX package blocked: any import of
+    either raises."""
     code = (
-        "import sys\n"
-        "sys.modules['jax'] = None\n"  # any jax import now raises
-        "import topk_rec_torch, topk_rec_torch.cli, topk_rec_torch.serving\n"
-        "import topk_rec_torch.eval.device, topk_rec_torch.ops.topk_fused\n"
-        "import topk_rec_torch.ops.topk_hybrid\n"
-        "import topk_rec_torch.interop, topk_rec_torch.eval.protocol\n"
-        "import topk_rec_torch.models, topk_rec_torch.models.bpr\n"
-        "import topk_rec_torch.ops.sampling\n"
-        "import topk_rec_torch.ops.sparse_update\n"
-        "import topk_rec_torch.ops.topk_floor, topk_rec_torch.checkpoint\n"
-        "import topk_rec_torch.ops.als, topk_rec_torch.models.wmf\n"
-        "import topk_rec_torch.models.cer, topk_rec_torch.models.vbpr\n"
-        "import topk_rec_torch.profiling\n"
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['topk_rec_tpu'] = None\n"
+        f"for name in {_port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import topk_rec_torch\n"
         "topk_rec_torch.BPR, topk_rec_torch.TripletSampler\n"
         "topk_rec_torch.VBPR, topk_rec_torch.WMF, topk_rec_torch.CER\n"
-        "loaded = [m for m in sys.modules if m.startswith('jax')\n"
-        "          and sys.modules[m] is not None]\n"
+        "loaded = [m for m in sys.modules if m.startswith(('jax', "
+        "'topk_rec_tpu')) and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
         "print('ok')\n"
     )
@@ -54,19 +69,21 @@ def test_imports_without_jax():
 
 
 def test_no_jax_import_lines():
-    pat = re.compile(r"^\s*(import|from)\s+jax\b")
-    offenders = []
+    """No import of jax or of the JAX package in the port or its smoke."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|topk_rec_tpu)\b")
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
-        for name in files:
-            if name.endswith(".py"):
-                path = os.path.join(dirpath, name)
-                with open(path) as f:
-                    offenders += [f"{path}:{n}" for n, line in enumerate(f, 1)
-                                  if pat.match(line)]
+        paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path) as f:
+            offenders += [f"{path}:{n}" for n, line in enumerate(f, 1)
+                          if pat.match(line)]
     assert not offenders
-    # the kernel sources ship with the package
+    assert len(_port_modules()) > 30
+    # the kernel and parser sources ship with the package
     for name in ("topk_fused.cu", "topk_count.cu", "topk_floor.cu",
-                 "score_tile.cuh"):
+                 "score_tile.cuh", "score_tile_sm90.cuh", "io_native.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", name))
 
 
@@ -134,7 +151,7 @@ def test_cpu_tensors_never_count_launches():
 def test_cpu_training_stays_on_the_cpu(small_inter):
     """BPR on the CPU keeps every table, accumulator and draw there."""
     model = BPR(k=4, lr=0.05, device="cpu")
-    model.set_interactions(small_inter)
+    model.set_interactions(_port(small_inter))
     model.train(epochs=1, batch_size=32, epoch_sample_limit=64,
                 scan_steps=2, verbose=False)
     assert model.sampler.user_rows.device.type == "cpu"
@@ -151,7 +168,7 @@ def test_cpu_als_and_content_training_stays_on_the_cpu(small_inter):
     for model in (WMF(k=4, block_size=64, device="cpu"),
                   CER(k=4, d=12, block_size=64, device="cpu"),
                   VBPR(k=4, d=12, lr=0.05, device="cpu")):
-        model.set_interactions(small_inter)
+        model.set_interactions(_port(small_inter))
         if model.d:
             model.set_features(feat)
         if isinstance(model, VBPR):

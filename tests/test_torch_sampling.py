@@ -14,9 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from topk_rec_tpu.data.dataset import Interactions
 from topk_rec_tpu.ops.sampling import TripletSampler as JaxSampler
+from topk_rec_torch.data import Interactions as PortInteractions
 from topk_rec_torch.ops.sampling import TripletSampler
+
+
+def _port(inter):
+    """The port's own Interactions over the same arrays as ``inter``."""
+    return PortInteractions(inter.n_users, inter.n_items, inter.pos_u,
+                            inter.pos_i, inter.seen_u, inter.seen_i)
 
 
 def _gen(seed):
@@ -35,7 +41,7 @@ def _check_valid(inter, u, i, j):
 
 @pytest.mark.parametrize("membership", ["bitmap", "sorted"])
 def test_triplets_valid(small_inter, membership):
-    sampler = TripletSampler(small_inter, membership=membership)
+    sampler = TripletSampler(_port(small_inter), membership=membership)
     assert sampler.membership == membership
     u, i, j = sampler.sample_numpy(_gen(0), 4096)
     assert u.dtype == i.dtype == j.dtype == np.int64
@@ -43,7 +49,7 @@ def test_triplets_valid(small_inter, membership):
 
 
 def test_user_uniformity(small_inter):
-    sampler = TripletSampler(small_inter)
+    sampler = TripletSampler(_port(small_inter))
     u, _, _ = sampler.sample_numpy(_gen(1), 60000)
     counts = np.bincount(u, minlength=small_inter.n_users)
     rated = small_inter.rated_users
@@ -55,7 +61,7 @@ def test_user_uniformity(small_inter):
 
 
 def test_positive_uniform_within_user(small_inter):
-    sampler = TripletSampler(small_inter)
+    sampler = TripletSampler(_port(small_inter))
     u, i, _ = sampler.sample_numpy(_gen(2), 120000)
     target = int(np.argmax(small_inter.user_deg))
     indptr, flat = small_inter.user_csr
@@ -68,7 +74,7 @@ def test_positive_uniform_within_user(small_inter):
 
 def test_negative_distribution(small_inter):
     """Kept negatives are about uniform over each user's non-positives."""
-    sampler = TripletSampler(small_inter)
+    sampler = TripletSampler(_port(small_inter))
     u, _, j = sampler.sample_numpy(_gen(3), 120000)
     target = int(np.argmax(small_inter.user_deg))
     indptr, flat = small_inter.user_csr
@@ -82,8 +88,8 @@ def test_negative_distribution(small_inter):
 
 
 def test_determinism(small_inter):
-    a = TripletSampler(small_inter).sample_numpy(_gen(7), 256)
-    b = TripletSampler(small_inter).sample_numpy(_gen(7), 256)
+    a = TripletSampler(_port(small_inter)).sample_numpy(_gen(7), 256)
+    b = TripletSampler(_port(small_inter)).sample_numpy(_gen(7), 256)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
 
@@ -91,8 +97,8 @@ def test_determinism(small_inter):
 def test_sorted_membership_identical_to_bitmap(small_inter):
     """Both stores consume one generator identically: the same seed gives
     byte-identical triplets."""
-    bm = TripletSampler(small_inter, membership="bitmap")
-    so = TripletSampler(small_inter, membership="sorted")
+    bm = TripletSampler(_port(small_inter), membership="bitmap")
+    so = TripletSampler(_port(small_inter), membership="sorted")
     for seed in (0, 3, 11):
         a = bm.sample_numpy(_gen(seed), 4096)
         b = so.sample_numpy(_gen(seed), 4096)
@@ -102,15 +108,15 @@ def test_sorted_membership_identical_to_bitmap(small_inter):
 
 def test_membership_auto_selection(small_inter):
     """auto takes the bitmap under the budget and the sorted keys above."""
-    assert TripletSampler(small_inter).membership == "bitmap"
-    tiny = TripletSampler(small_inter, membership="auto",
+    assert TripletSampler(_port(small_inter)).membership == "bitmap"
+    tiny = TripletSampler(_port(small_inter), membership="auto",
                           bitmap_budget_bytes=1)
     assert tiny.membership == "sorted"
     u, i, j = tiny.sample_numpy(_gen(9), 512)
     assert len(u) == 512
     _check_valid(small_inter, u, i, j)
     with pytest.raises(ValueError, match="membership"):
-        TripletSampler(small_inter, membership="dense")
+        TripletSampler(_port(small_inter), membership="dense")
 
 
 def test_bpr_training_identical_across_membership(small_inter):
@@ -121,7 +127,7 @@ def test_bpr_training_identical_across_membership(small_inter):
     out = {}
     for membership in ("bitmap", "sorted"):
         m = BPR(k=8, seed=3, membership=membership, device="cpu")
-        m.set_interactions(small_inter)
+        m.set_interactions(_port(small_inter))
         m.train(epochs=1, batch_size=64, epoch_sample_limit=640,
                 scan_steps=10, verbose=False)
         out[membership] = (m.fue.copy(), m.fie.copy(), m.fib.copy())
@@ -136,7 +142,7 @@ def test_single_negative_user_both_stores():
     # user 0 likes everything but item 17; user 1 likes item 3 only
     pos_u = np.array([0] * (n_items - 1) + [1], np.int32)
     pos_i = np.array([i for i in range(n_items) if i != 17] + [3], np.int32)
-    inter = Interactions(2, n_items, pos_u, pos_i)
+    inter = PortInteractions(2, n_items, pos_u, pos_i)
     for membership in ("bitmap", "sorted"):
         s = TripletSampler(inter, membership=membership)
         u, i, j = s.sample_numpy(_gen(1), 512)
@@ -158,7 +164,7 @@ def test_same_distribution_as_jax_sampler(small_inter):
     and the JAX sampler's agree within df + 6·sqrt(2·df) of a two-sample
     chi-square."""
     n = 120000
-    tu, ti, tj = TripletSampler(small_inter).sample_numpy(_gen(5), n)
+    tu, ti, tj = TripletSampler(_port(small_inter)).sample_numpy(_gen(5), n)
     ju, ji, jj = JaxSampler(small_inter).sample_numpy(
         jax.random.PRNGKey(5), n)
     target = int(np.argmax(small_inter.user_deg))

@@ -16,11 +16,18 @@ import pytest
 import torch
 
 from topk_rec_tpu.serving import TopKServer as JaxServer
+from topk_rec_torch.data import Interactions as PortInteractions
 from topk_rec_torch.interop import from_jax_params
 from topk_rec_torch.serving import TopKServer
 
 METHODS = ["exact", "kernel", "hybrid"]
 ALL_METHODS = ["exact", "approx", "kernel", "hybrid"]
+
+
+def _port(inter):
+    """The port's own Interactions over the same arrays as ``inter``."""
+    return PortInteractions(inter.n_users, inter.n_items, inter.pos_u,
+                            inter.pos_i, inter.seen_u, inter.seen_i)
 
 
 def _bf16(a):
@@ -50,7 +57,7 @@ def test_matches_jax_exact(small_inter, method, seen_format):
     U, V, b = _tables(small_inter, 0)
     users = np.array([0, 3, 5, 17, 21, 44, 44, 9])
     jax_srv = JaxServer(U, V, b, small_inter)
-    srv = TopKServer(U, V, b, small_inter, seen_format=seen_format,
+    srv = TopKServer(U, V, b, _port(small_inter), seen_format=seen_format,
                      device="cpu")
     _assert_same(srv.recommend(users, k=10, method=method),
                  jax_srv.recommend(users, k=10, method="exact"))
@@ -62,7 +69,7 @@ def test_bf16_tables(small_inter, method):
     U = rng.normal(size=(small_inter.n_users, 8)).astype(np.float32)
     V = rng.normal(size=(small_inter.n_items, 8)).astype(np.float32)
     b = rng.normal(size=small_inter.n_items).astype(np.float32)
-    srv = TopKServer(U, V, b, small_inter, table_dtype=torch.bfloat16,
+    srv = TopKServer(U, V, b, _port(small_inter), table_dtype=torch.bfloat16,
                      device="cpu")
     assert srv.U.dtype == torch.bfloat16 and srv.V.dtype == torch.bfloat16
     assert srv.bias.dtype == torch.float32
@@ -75,7 +82,7 @@ def test_bf16_tables(small_inter, method):
 @pytest.mark.parametrize("method", ALL_METHODS)
 def test_seen_items_never_served(small_inter, method):
     U, V, b = _tables(small_inter, 1, bias=False)
-    srv = TopKServer(U, V, b, small_inter, device="cpu")
+    srv = TopKServer(U, V, b, _port(small_inter), device="cpu")
     users = small_inter.rated_users[:20]
     vals, idx = srv.recommend(users, k=20, method=method)
     pos = set(zip(small_inter.seen_u.tolist(), small_inter.seen_i.tolist()))
@@ -88,7 +95,7 @@ def test_seen_items_never_served(small_inter, method):
 @pytest.mark.parametrize("method", ALL_METHODS)
 def test_recommend_async_matches_sync(small_inter, method):
     U, V, _ = _tables(small_inter, 9, dim=6)
-    srv = TopKServer(U, V, None, small_inter, device="cpu")
+    srv = TopKServer(U, V, None, _port(small_inter), device="cpu")
     uids = np.random.default_rng(9).integers(0, small_inter.n_users, 16)
     sv, si = srv.recommend(uids, k=7, method=method)
     futs = [srv.recommend_async(uids, k=7, method=method) for _ in range(3)]
@@ -100,7 +107,8 @@ def test_recommend_async_matches_sync(small_inter, method):
 
 def test_exclude_seen_off_and_buffers(small_inter):
     U, V, b = _tables(small_inter, 2)
-    srv = TopKServer(U, V, b, small_inter, exclude_seen=False, device="cpu")
+    srv = TopKServer(U, V, b, _port(small_inter), exclude_seen=False,
+                     device="cpu")
     jax_srv = JaxServer(U, V, b, small_inter, exclude_seen=False)
     users = np.arange(8)
     for method in METHODS:
@@ -113,8 +121,8 @@ def test_exclude_seen_off_and_buffers(small_inter):
 def test_unsupported_options_raise(small_inter):
     U, V, b = _tables(small_inter, 3)
     with pytest.raises(NotImplementedError):
-        TopKServer(U, V, b, small_inter, mesh=object(), device="cpu")
-    srv = TopKServer(U, V, b, small_inter, device="cpu")
+        TopKServer(U, V, b, _port(small_inter), mesh=object(), device="cpu")
+    srv = TopKServer(U, V, b, _port(small_inter), device="cpu")
     # JAX's name for the fused kernel; the port's is "kernel"
     with pytest.raises(ValueError, match="unknown method"):
         srv.recommend(np.arange(2), k=3, method="pallas")
@@ -150,7 +158,7 @@ def _approx_valid_with_recall(got, U, V, b, inter, users, k):
 def test_approx_valid_with_recall(small_inter, seen_format):
     U, V, b = _tables(small_inter, 0)
     users = np.array([0, 3, 5, 17, 21, 44, 44, 9])
-    srv = TopKServer(U, V, b, small_inter, seen_format=seen_format,
+    srv = TopKServer(U, V, b, _port(small_inter), seen_format=seen_format,
                      device="cpu")
     got = srv.recommend(users, k=10, method="approx")
     _approx_valid_with_recall(got, U, V, b, small_inter, users, 10)
@@ -160,8 +168,8 @@ def test_approx_bf16_tables(small_inter):
     rng = np.random.default_rng(6)
     U = rng.normal(size=(small_inter.n_users, 8)).astype(np.float32)
     V = rng.normal(size=(small_inter.n_items, 8)).astype(np.float32)
-    srv = TopKServer(U, V, None, small_inter, table_dtype=torch.bfloat16,
-                     device="cpu")
+    srv = TopKServer(U, V, None, _port(small_inter),
+                     table_dtype=torch.bfloat16, device="cpu")
     users = np.array([0, 5, 17, 44])
     got = srv.recommend(users, k=10, method="approx")
     _approx_valid_with_recall(got, U, V, None, small_inter, users, 10)
@@ -178,7 +186,7 @@ def test_large_catalog_approx_reduces_and_hybrid_stays_exact():
     assert approx_bins(inter.n_items, 10, 0.95) == (256, 4)
     U, V, b = _tables(inter, 8)
     users = np.arange(0, 40, 3)
-    srv = TopKServer(U, V, b, inter, device="cpu")
+    srv = TopKServer(U, V, b, _port(inter), device="cpu")
     _approx_valid_with_recall(srv.recommend(users, k=10, method="approx"),
                               U, V, b, inter, users, 10)
     want = JaxServer(U, V, b, inter).recommend(users, k=10, method="exact")
@@ -199,7 +207,7 @@ def test_trained_bpr_through_from_jax_params(small_inter):
     assert U.dtype == torch.float32 and bias.shape == (small_inter.n_items,)
     users = np.arange(0, small_inter.n_users, 7)
     want = jax_srv.recommend(users, k=10)
-    for srv in (TopKServer(U, V, bias, small_inter, device="cpu"),
+    for srv in (TopKServer(U, V, bias, _port(small_inter), device="cpu"),
                 TopKServer.from_model(model, device="cpu")):
         for method in METHODS:
             _assert_same(srv.recommend(users, k=10, method=method), want)

@@ -188,3 +188,48 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="agree on d"):
         tf.fused_score_topk(U, torch.zeros(40, 2), None,
                             torch.zeros(4, 2, dtype=torch.int32), 5)
+
+
+def _csrc_constant(source, name):
+    """An ``int`` constant as the kernel source declares it."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(tf.__file__), "..", "csrc", source)
+    with open(path) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             f.read()).group(1))
+
+
+def _geometries():
+    """(name, rows per block, item tile, most splits) of K1 (fp32 and bf16),
+    K2 and P1, from the kernel sources."""
+    k1_tile = _csrc_constant("topk_fused.cu", "kBN")
+    return [
+        ("K1", _csrc_constant("topk_fused.cu", "kBMFp32"), k1_tile, 32),
+        ("K1", _csrc_constant("topk_fused.cu", "kBMBf16"), k1_tile, 32),
+        ("K2", _csrc_constant("topk_count.cu", "kCountBM"),
+         _csrc_constant("topk_count.cu", "kCountBN"), 65535),
+        ("P1", _csrc_constant("score_tile.cuh", "kRows"),
+         _csrc_constant("score_tile.cuh", "kThreads"), 32),
+    ]
+
+
+@pytest.mark.parametrize("slots", [1, 132, 264, 528])
+@pytest.mark.parametrize("n_u", [1, 5, 256, 8192, 69878])
+def test_item_splits_cover_the_catalog(n_u, slots):
+    """The splits K1, K2 and P1 launch cover the catalog exactly, each is a
+    whole number of the kernel's item tiles, and K1 and P1 (whose splits
+    meet in a merge of at most 32 lists) never take more than 32."""
+    for name, rows, tile, most in _geometries():
+        for n_i in (1, 100, 127, 128, 129, 4173, 10380, 100000):
+            split_len, n_splits = tf.item_splits(n_u, n_i, rows, tile,
+                                                 slots, most)
+            assert split_len % tile == 0 and split_len > 0, name
+            assert split_len * (n_splits - 1) < n_i <= split_len * n_splits
+            assert 1 <= n_splits <= most, name
+            if name != "K2":
+                assert n_splits <= 32
+            row_blocks = -(-n_u // rows)
+            if row_blocks >= slots:  # enough rows: the catalog stays whole
+                assert n_splits == 1, name

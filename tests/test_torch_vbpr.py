@@ -37,6 +37,7 @@ from topk_rec_tpu.data.dataset import (
 )
 from topk_rec_tpu.eval.protocol import evaluate_oracle
 from topk_rec_torch.checkpoint import CheckpointManager
+from topk_rec_torch.data import Interactions as PortInteractions
 from topk_rec_torch.interop import vbpr_from_jax, vbpr_to_jax
 from topk_rec_torch.models import VBPR
 from topk_rec_torch.models.bpr import INIT_STREAM, stream_generator
@@ -77,9 +78,15 @@ def _state(n_u, n_i, d, kh):
     return params, ms
 
 
+def _port(inter):
+    """The port's own Interactions over the same arrays as ``inter``."""
+    return PortInteractions(inter.n_users, inter.n_items, inter.pos_u,
+                            inter.pos_i, inter.seen_u, inter.seen_i)
+
+
 def _model(inter, feat, **kw):
     m = VBPR(d=feat.shape[1], device="cpu", **kw)
-    m.set_interactions(inter)
+    m.set_interactions(_port(inter))
     m.set_features(feat)
     return m
 
@@ -273,7 +280,7 @@ def test_validation(content_fold):
     with pytest.raises(ValueError, match="membership"):
         VBPR(k=4, d=4, membership="dense", device="cpu")
     m = VBPR(k=4, d=4, device="cpu")
-    m.set_interactions(tr)
+    m.set_interactions(_port(tr))
     with pytest.raises(ValueError, match="features"):
         m.train(epochs=1)
 

@@ -35,11 +35,18 @@ from topk_rec_tpu.data.dataset import (
 from topk_rec_tpu.models import CER as JaxCER
 from topk_rec_tpu.models import WMF as JaxWMF
 from topk_rec_tpu.models import cer as jcer
+from topk_rec_torch.data import Interactions as PortInteractions
 from topk_rec_torch.models import CER, WMF
 from topk_rec_torch.models import cer as tcer
 
 SOLVE_TOL = dict(rtol=1e-4, atol=1e-6)
 DAT_TOL = dict(rtol=2e-7, atol=6e-7)
+
+
+def _port(inter):
+    """The port's own Interactions over the same arrays as ``inter``."""
+    return PortInteractions(inter.n_users, inter.n_items, inter.pos_u,
+                            inter.pos_i, inter.seen_u, inter.seen_i)
 
 
 @pytest.fixture(scope="module")
@@ -108,7 +115,7 @@ def test_wmf_train_equals_jax(cold_fold, tmp_path, with_theta):
     for name, cls, kw in (("jax", JaxWMF, {}), ("port", WMF,
                                                 {"device": "cpu"})):
         m = cls(k=k, seed=7, block_size=64, **kw)
-        m.set_interactions(tr)
+        m.set_interactions(tr if name == "jax" else _port(tr))
         out = str(tmp_path / name)
         m.train(max_iter=3, tol=0.0, verbose=False, log_dir=out,
                 save_lag=1, save_dir=out, **extra)
@@ -135,10 +142,10 @@ def test_wmf_theta_prior_and_loss(cold_fold):
     theta = np.random.default_rng(31).normal(size=(tr.n_items, k)).astype(
         np.float32)
     model = WMF(k=k, seed=7, block_size=64, device="cpu")
-    model.set_interactions(tr)
+    model.set_interactions(_port(tr))
     model.train(max_iter=1, tol=0.0, theta=theta, verbose=False)
     ref = WMF(k=k, seed=7, block_size=64, device="cpu")
-    ref.set_interactions(tr)
+    ref.set_interactions(_port(tr))
     ref.fie = theta.copy()
     ref._sweeps(prior=torch.from_numpy(theta))
     ref._sync_host()
@@ -169,7 +176,7 @@ def test_cer_train_equals_jax(cold_fold, tmp_path, d, route):
     for name, cls, kw in (("jax", JaxCER, {}), ("port", CER,
                                                 {"device": "cpu"})):
         m = cls(k=8, d=d, lv=10.0, le=100.0, seed=11, block_size=64, **kw)
-        m.set_interactions(tr)
+        m.set_interactions(tr if name == "jax" else _port(tr))
         m.set_features(feat)
         out = str(tmp_path / name)
         with warnings.catch_warnings():
@@ -199,7 +206,7 @@ def test_cer_final_e_interchange(cold_fold, tmp_path):
 
     def make(cls, **kw):
         m = cls(k=6, d=40, seed=12, block_size=64, **kw)
-        m.set_interactions(tr)
+        m.set_interactions(tr if cls is JaxCER else _port(tr))
         m.set_features(feat)
         return m
 

@@ -15,9 +15,17 @@ model and npz checkpoints) and P1, the floor of K1 (``ops/topk_floor.py``,
 ``benchmarks/probe_topk_floor.py:44``. Its fourth slice adds the content
 and ALS trainers (``train --model vbpr|wmf|cer``: the batched weighted-ALS
 core, WMF, CER, VBPR, content loading) and ``profile_trace``; they run no
-kernel of their own, and their tables are scored through K1.
+kernel of their own, and their tables are scored through K1. Its fifth
+slice makes it stand alone, with its own ``data``, ``config``, ``utils``
+and C++ parser, and moves K1 and K2 onto a tile loop for Hopper
+(``csrc/score_tile_sm90.cuh``: fp32 on the CUDA cores, bf16 on the tensor
+cores).
 
 Layout:
+  config.py   the entry points' dataclass configuration
+  data/       fold, id-map, ``.dat`` and feature IO and ``Interactions``
+  native/     the C++ fold and ``.dat`` parser, built at first use
+  utils/      ``tprint`` and the ALS ``StateLog``
   device.py   device resolution and fp32 matmul settings
   ops/        kernels with their plain twins: topk_fused (K1, fused top-k,
               bitmap helpers), topk_hybrid (K2, the threshold-count audit
@@ -39,8 +47,8 @@ Layout:
 
 The attribute map below is lazy, as in ``topk_rec_tpu/__init__.py:24-43``:
 ``import topk_rec_torch`` loads no kernel and no torch module beyond itself.
-The port imports only ``topk_rec_tpu.data``, ``.config``, ``.utils`` and
-``.native`` from the JAX package, which are jax-free.
+The port imports nothing of the JAX package: ``data``, ``config``, ``utils``
+and ``native`` are its own copies of what it needs from there.
 """
 
 __version__ = "0.1.0"

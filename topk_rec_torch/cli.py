@@ -9,8 +9,8 @@ package: ``--engine {torch,kernel}`` stands for JAX's ``{xla,pallas}`` and
 ``--method {exact,approx,kernel,hybrid}`` for
 ``{exact,approx,pallas,hybrid}``; both default to ``kernel``, the fused
 CUDA kernel. Folds and ``.dat`` files are
-read by the shared ``topk_rec_tpu.data``, so the CSV lines match
-``topk_rec_tpu.cli``.
+read by the port's own ``data`` package, the same parser as
+``topk_rec_tpu.data``, so the CSV lines match ``topk_rec_tpu.cli``.
 
 Usage:
   python -m topk_rec_torch.cli train --model bpr -d data -o embed/bpr
@@ -30,16 +30,15 @@ from typing import List, Optional
 
 import numpy as np
 
-from topk_rec_tpu.config import (
+from .config import (
     DataConfig,
     EvalConfig,
     ModelConfig,
     TrainConfig,
 )
-from topk_rec_tpu.data import Interactions, load_id_map, read_dat
-from topk_rec_tpu.utils import tprint
-
+from .data import Interactions, load_id_map, read_dat
 from .eval.protocol import load_test_likes
+from .utils import tprint
 
 _EC = EvalConfig()
 _MC = ModelConfig()

@@ -14,22 +14,24 @@
 // verdict is the same, since such a row fails it either way.
 //
 // What bounds it on the H100: the same product as K1 (at 8,192 users x
-// 10,380 items, d = 50: 4.25 G FMA in fp32 on the CUDA cores) against about
-// 11 MB of bitmap and 2 MB of V read. It is compute-bound, and the count is
-// a few compares per score, far cheaper than K1's selection. So the design
-// is K1's score loop (score_tile.cuh: kRows user rows per block in shared
-// memory, V staged in kDTile-column tiles, sequential fmaf) followed by
-// per-thread counters in registers. At the end of its item range each warp
-// sums its counters with __reduce_add_sync, lane 0 adds them into the
-// block's shared counters, and one thread per row adds those into the
-// output with atomicAdd (int32, so the total does not depend on the order).
-// Small batches split the catalog over grid.y, as K1 does, so that enough
-// blocks run; the splits meet in the same atomics and need no second pass.
+// 10,380 items, d = 50: 4.25 G FMA in fp32, 0.127 ms at 67 TFLOP/s) against
+// about 14 MB of bitmap, tables and counts. It is bound by operations, and
+// the count is a few compares per score. So the design is the tile loop of
+// score_tile_sm90.cuh with 64 users x 128 items per block (fp32: a 4 x 8
+// register micro-tile of sequential fmaf per thread; bf16: mma.sync on the
+// tensor cores), V double-buffered by cp.async, followed by per-thread
+// counters in registers. A score below t - (2e-4·|t| + 4e-6) is in neither
+// count, so only the few that reach it read their bit word. At the end of its item
+// range each thread adds its counters into the block's shared counters, and
+// one thread per row adds those into the output with atomicAdd (int32, so
+// the total does not depend on the order). Small batches split the catalog
+// over grid.y, as K1 does, so that enough blocks run; the splits meet in the
+// same atomics and need no second pass.
 //
 // The eps arithmetic uses __fmul_rn / __fadd_rn / __fsub_rn so that nvcc
 // cannot contract it into an fma: the rounding then matches the plain twin's
 // separate multiply and add. Output gt, eq: int32 [n_u], zeroed by the
-// caller. The entry point returns cudaGetLastError().
+// caller. The entry points return a cudaError_t value.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,127 +39,203 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "score_tile.cuh"
+#include <type_traits>
+
+#include "score_tile_sm90.cuh"
 
 namespace {
 
+constexpr int kCountBM = 64;              // users per block
+constexpr int kCountBN = 128;             // items per tile
+constexpr int kCountNT = 256;             // threads per block
 constexpr float kCountNegInf = -FLT_MAX;  // float32.min: an excluded score
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    count_pass(const T* __restrict__ U, const T* __restrict__ V,
-               const float* __restrict__ bias,
-               const int32_t* __restrict__ excl,
-               const float* __restrict__ thr, int32_t* __restrict__ out_gt,
-               int32_t* __restrict__ out_eq, int n_u, int n_i, int d, int dpad,
-               int n_words, int split_len) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Us = reinterpret_cast<float*>(smem);  // [kRows][dpad]
-  float* Vs = Us + (size_t)kRows * dpad;         // [kThreads][kVStride]
-  __shared__ int blk_gt[kRows];
-  __shared__ int blk_eq[kRows];
+using CountFma = FmaTile<kCountBM, kCountBN, 4, 8>;
+using CountMma = MmaTile<kCountBM, kCountBN, kCountNT>;
+static_assert(CountFma::kThreads == kCountNT, "fp32 tile threads");
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int row0 = blockIdx.x * kRows;
-  const int item_begin = blockIdx.y * split_len;
-  const int item_end = min(n_i, item_begin + split_len);
+// K2's epilogue on the tile loop: per-thread counters of its rows.
+template <class Tile>
+struct Count {
+  float t[Tile::RPT];
+  float lo[Tile::RPT];  // scores below lo are in neither count
+  int gt[Tile::RPT];
+  int eq[Tile::RPT];
+  float bc[Tile::CPT];  // the bias of this thread's columns of the tile
+  const float* bias;
+  const int32_t* excl;
+  int row0, n_u, n_words, item_end;
 
-  stage_rows(U, Us, row0, n_u, d, dpad);
-  if (tid < kRows) {
-    blk_gt[tid] = 0;
-    blk_eq[tid] = 0;
+  // lo = t - (2e-4·|t| + 4e-6), -inf where that overflows or t is not
+  // finite. For s < lo, s > t + eps is false since s < t; and |s - t| >
+  // eps: if |s| <= |t|, t - s > 2e-4·|t| + 4e-6 >= twice eps; if |s| > |t|
+  // then s < 0, and either t >= 0 and t - s >= |s| > 1e-4·|s| + 1e-6, or
+  // t < 0 and x = |s| - |t| > 2e-4·|t| + 4e-6 gives 0.9999·x > 1e-4·|t| +
+  // 1e-6, i.e. x > eps. Each margin is far wider than the roundings of
+  // eps and s - t. An excluded item scores float32.min, below every finite
+  // lo, so the excluded bit is read only for scores that pass.
+  __device__ __forceinline__ void set_threshold(int ri, float tr) {
+    t[ri] = tr;
+    const float m = 2e-4f * fabsf(tr) + 4e-6f;
+    const float l = tr - m;
+    lo[ri] = isfinite(l) ? l : -INFINITY;
   }
-  float t[kRows];
-  int gt[kRows];
-  int eq[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    t[r] = row0 + r < n_u ? thr[row0 + r] : 0.f;
-    gt[r] = 0;
-    eq[r] = 0;
-  }
-  __syncthreads();
 
-  for (int c0 = item_begin; c0 < item_end; c0 += kThreads) {
-    float acc[kRows];
-    score_chunk(V, Us, Vs, c0, item_end, d, dpad, acc);
-    const int item = c0 + tid;
-    if (item < item_end) {
-      const float b = bias != nullptr ? bias[item] : 0.f;
+  __device__ __forceinline__ void prefetch(const Tile& tl, int c0) {
+    load_bias(bc, tl, bias, c0, item_end);
+  }
+
+  __device__ __forceinline__ void tile(const Tile& tl, int c0) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int u = row0 + r;
+    for (int cj = 0; cj < Tile::CPT; ++cj) {
+      const int item = c0 + tl.col(cj);
+      if (item >= item_end) continue;
+#pragma unroll
+      for (int ri = 0; ri < Tile::RPT; ++ri) {
+        const float raw = tl.val(ri, cj) + bc[cj];
+        if (raw < lo[ri]) continue;
+        const int u = row0 + tl.row(ri);
         if (u >= n_u) continue;
-        const float s =
-            excluded(excl, u, n_words, item) ? kCountNegInf : acc[r] + b;
+        const float s = excluded(excl, n_words, u, item) ? kCountNegInf : raw;
         const float eps = __fadd_rn(
-            __fmul_rn(1e-4f, fmaxf(fabsf(t[r]), fabsf(s))), 1e-6f);
-        gt[r] += s > __fadd_rn(t[r], eps);
-        eq[r] += fabsf(__fsub_rn(s, t[r])) <= eps;
+            __fmul_rn(1e-4f, fmaxf(fabsf(t[ri]), fabsf(s))), 1e-6f);
+        gt[ri] += s > __fadd_rn(t[ri], eps);
+        eq[ri] += fabsf(__fsub_rn(s, t[ri])) <= eps;
       }
     }
   }
+};
+
+// Two blocks per SM: at most 128 registers a thread.
+template <class Tile>
+__global__ void __launch_bounds__(kCountNT, 2)
+    count_pass(TileArgs<typename Tile::Elem> a, const float* __restrict__ thr,
+               int32_t* __restrict__ out_gt, int32_t* __restrict__ out_eq,
+               int n_i, int split_len) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int blk_gt[kCountBM];
+  __shared__ int blk_eq[kCountBM];
+  a.row0 = blockIdx.x * kCountBM;
+  a.item_begin = blockIdx.y * split_len;
+  a.item_end = min(n_i, a.item_begin + split_len);
+
+  const Tile probe;  // the rows this thread holds
+  Count<Tile> cnt;
+  cnt.bias = a.bias;
+  cnt.excl = a.excl;
+  cnt.row0 = a.row0;
+  cnt.n_u = a.n_u;
+  cnt.n_words = a.n_words;
+  cnt.item_end = a.item_end;
+#pragma unroll
+  for (int ri = 0; ri < Tile::RPT; ++ri) {
+    const int u = a.row0 + probe.row(ri);
+    cnt.set_threshold(ri, u < a.n_u ? thr[u] : 0.f);
+    cnt.gt[ri] = 0;
+    cnt.eq[ri] = 0;
+  }
+  for (int r = threadIdx.x; r < kCountBM; r += kCountNT) {
+    blk_gt[r] = 0;
+    blk_eq[r] = 0;
+  }
+  __syncthreads();
+  run_tiles<Tile, kCountBM, kCountBN>(a, smem, cnt);
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int g = __reduce_add_sync(kFull, gt[r]);
-    const int e = __reduce_add_sync(kFull, eq[r]);
-    if (lane == 0 && (g | e)) {
-      atomicAdd(&blk_gt[r], g);
-      atomicAdd(&blk_eq[r], e);
+  for (int ri = 0; ri < Tile::RPT; ++ri) {
+    if (cnt.gt[ri] | cnt.eq[ri]) {
+      atomicAdd(&blk_gt[probe.row(ri)], cnt.gt[ri]);
+      atomicAdd(&blk_eq[probe.row(ri)], cnt.eq[ri]);
     }
   }
   __syncthreads();
-  if (tid < kRows && row0 + tid < n_u) {
-    atomicAdd(&out_gt[row0 + tid], blk_gt[tid]);
-    atomicAdd(&out_eq[row0 + tid], blk_eq[tid]);
+  for (int r = threadIdx.x; r < kCountBM; r += kCountNT) {
+    if (a.row0 + r < a.n_u && (blk_gt[r] | blk_eq[r])) {
+      atomicAdd(&out_gt[a.row0 + r], blk_gt[r]);
+      atomicAdd(&out_eq[a.row0 + r], blk_eq[r]);
+    }
   }
 }
 
-template <typename T>
+template <bool kBf16>
+struct CountPass {
+  using Tile = typename std::conditional<kBf16, CountMma, CountFma>::type;
+  using T = typename Tile::Elem;
+  static size_t smem(int d) {
+    return tile_smem_bytes(kCountBM, kCountBN, d, kBf16);
+  }
+  static cudaError_t prepare(int d) {
+    return cudaFuncSetAttribute(count_pass<Tile>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem(d));
+  }
+};
+
+template <bool kBf16>
 int launch_count(const void* U, const void* V, const void* bias,
                  const void* excl, const void* thr, void* out_gt, void* out_eq,
                  int n_u, int n_i, int d, int n_words, int split_len,
                  int n_splits, cudaStream_t stream) {
-  const int dpad = round_up(d, kDTile);
-  const size_t smem = sizeof(float) * tile_smem_floats(dpad);
-  cudaError_t err = cudaFuncSetAttribute(
-      count_pass<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using P = CountPass<kBf16>;
+  using T = typename P::T;
+  cudaError_t err = P::prepare(d);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n_u + kRows - 1) / kRows, n_splits);
-  count_pass<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(U), static_cast<const T*>(V),
-      static_cast<const float*>(bias), static_cast<const int32_t*>(excl),
-      static_cast<const float*>(thr), static_cast<int32_t*>(out_gt),
-      static_cast<int32_t*>(out_eq), n_u, n_i, d, dpad, n_words, split_len);
+  TileArgs<T> a{static_cast<const T*>(U), static_cast<const T*>(V),
+                static_cast<const float*>(bias),
+                static_cast<const int32_t*>(excl), n_u, d, n_words, 0, 0, 0};
+  dim3 grid((n_u + kCountBM - 1) / kCountBM, n_splits);
+  count_pass<typename P::Tile><<<grid, kCountNT, P::smem(d), stream>>>(
+      a, static_cast<const float*>(thr), static_cast<int32_t*>(out_gt),
+      static_cast<int32_t*>(out_eq), n_i, split_len);
   return (int)cudaGetLastError();
+}
+
+template <bool kBf16>
+int count_occupancy(int d, int* blocks) {
+  using P = CountPass<kBf16>;
+  cudaError_t err = P::prepare(d);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, count_pass<typename P::Tile>, kCountNT, P::smem(d));
 }
 
 }  // namespace
 
 extern "C" {
 
+// K2's geometry at (d, mode): *rows users per block, *tile items per tile
+// (a split is a whole number of tiles), *blocks resident blocks per SM.
+int tkr_count_geometry(int d, int bf16, int* rows, int* tile, int* blocks) {
+  if (d <= 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
+  *rows = kCountBM;
+  *tile = kCountBN;
+  return bf16 ? count_occupancy<true>(d, blocks)
+              : count_occupancy<false>(d, blocks);
+}
+
 // U [n_u, d], V [n_i, d] (float32 when bf16 == 0, bfloat16 otherwise),
-// bias [n_i] float32 or null, excl [n_u, n_words] int32 bit words, thr [n_u]
-// float32; out_gt, out_eq [n_u] int32, zeroed. The items split into n_splits
-// ranges of split_len (grid.y). Returns a cudaError_t value (0 = ok).
+// contiguous, rows and bases 16-byte aligned (see kernel_table in
+// ops/topk_fused.py), bias [n_i] float32 or null, excl [n_u, n_words] int32
+// bit words, thr [n_u] float32; out_gt, out_eq [n_u] int32, zeroed. The items
+// split into n_splits ranges of split_len (grid.y), a multiple of the tile.
+// Returns a cudaError_t value (0 = ok).
 int tkr_count_vs_threshold(const void* U, const void* V, const void* bias,
                            const void* excl, const void* thr, void* out_gt,
                            void* out_eq, int n_u, int n_i, int d, int n_words,
                            int split_len, int n_splits, int bf16,
                            void* stream) {
   if (n_u <= 0 || n_i <= 0 || d <= 0 || d > kMaxD ||
-      n_words < (n_i + 31) / 32 || split_len <= 0 || n_splits <= 0 ||
-      n_splits > 65535 || (long long)split_len * n_splits < n_i ||
-      (long long)split_len * (n_splits - 1) >= n_i)
+      n_words < (n_i + 31) / 32 || split_len <= 0 ||
+      split_len % kCountBN != 0 || n_splits <= 0 || n_splits > 65535 ||
+      (long long)split_len * n_splits < n_i ||
+      (long long)split_len * (n_splits - 1) >= n_i ||
+      !rows_aligned(d, bf16, U, V))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_count<__nv_bfloat16>(U, V, bias, excl, thr, out_gt, out_eq,
-                                       n_u, n_i, d, n_words, split_len,
-                                       n_splits, s);
-  return launch_count<float>(U, V, bias, excl, thr, out_gt, out_eq, n_u, n_i,
+    return launch_count<true>(U, V, bias, excl, thr, out_gt, out_eq, n_u, n_i,
+                              d, n_words, split_len, n_splits, s);
+  return launch_count<false>(U, V, bias, excl, thr, out_gt, out_eq, n_u, n_i,
                              d, n_words, split_len, n_splits, s);
 }
 

@@ -205,6 +205,14 @@ int dispatch_index(bool index, const void* U, const void* V,
 
 extern "C" {
 
+// P1's geometry: *rows users per block and *tile items per chunk (a split
+// is a whole number of chunks). Returns 0.
+int tkr_floor_geometry(int* rows, int* tile) {
+  *rows = kRows;
+  *tile = kThreads;
+  return 0;
+}
+
 // U [n_u, d], V [n_i, d] (float32 when bf16 == 0, bfloat16 otherwise),
 // bias [n_i] float32 or null, excl [n_u, n_words] int32 bit words; out_v
 // [n_u, 128] float32, out_i [n_u, 128] int32 or null (variant A). The items

@@ -29,6 +29,8 @@ from ..ops.topk_fused import (
     bitmap_tensor,
     expand_seen_mask,
     fused_score_topk,
+    kernel_table,
+    kernel_width,
     pack_candidate_bitmap,
     topk_stable,
 )
@@ -91,11 +93,23 @@ def _chunked(U, v_dev, b_dev, bm_dev, rr_dev, n_cand, k, user_chunk,
              use_kernel, dev):
     """Score every user chunk on the device; fetch once at the end."""
     step = _kernel_chunk if use_kernel else _score_topk_chunk
+    # K1 reads its tables padded (ops/topk_fused.py:kernel_table): the
+    # candidates are padded once here, and each chunk of users on the host
+    # before its copy, so that no launch pads a table on the card
+    pad = use_kernel and dev.type == "cuda"
+    v_step = kernel_table(v_dev) if pad else v_dev
+    d = U.shape[1]
     vals, idxs, sas = [], [], []
     for start in range(0, U.shape[0], user_chunk):
         stop = min(start + user_chunk, U.shape[0])
-        u_dev = _to_dev(U[start:stop], dev)
-        v, i = step(u_dev, v_dev, b_dev, bm_dev[start:stop], n_cand, k)
+        if pad:
+            u_host = np.zeros((stop - start, kernel_width(d)), np.float32)
+            u_host[:, :d] = U[start:stop]
+            u_step = _to_dev(u_host, dev)
+            u_dev = u_step[:, :d]
+        else:
+            u_dev = u_step = _to_dev(U[start:stop], dev)
+        v, i = step(u_step, v_step, b_dev, bm_dev[start:stop], n_cand, k)
         vals.append(v)
         idxs.append(i.to(torch.int32))
         if rr_dev is not None:

@@ -20,9 +20,9 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from topk_rec_tpu.data.dataset import Interactions
-from topk_rec_tpu.data.io import load_features, read_dat, write_dat
-from topk_rec_tpu.utils import tprint
+from ..data.dataset import Interactions
+from ..data.io import load_features, read_dat, write_dat
+from ..utils import tprint
 
 from ..device import resolve_device
 
@@ -70,7 +70,7 @@ class Recommender(ABC):
         """Hook for subclasses to build their device layouts."""
 
     def load_content_data(self, content_file: str, iid_file: str) -> None:
-        """Read pickled item features with the shared ``load_features``:
+        """Read pickled item features with ``data.load_features``:
         rows aligned to the item index, zero rows for items the file lacks,
         ``self.d`` columns when it is set (base.py:77-84)."""
         tprint(f"Load content data from {content_file}")

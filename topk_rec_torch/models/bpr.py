@@ -42,8 +42,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from topk_rec_tpu.utils import tprint
-
 from ..checkpoint import CheckpointManager
 from ..ops.sampling import TripletSampler
 from ..ops.sparse_update import (
@@ -51,6 +49,7 @@ from ..ops.sparse_update import (
     plan_sparse_updates,
     planned_rows,
 )
+from ..utils import tprint
 from .base import Recommender
 
 INIT_STREAM = 2**31 - 1  # the init's stream, apart from every epoch's

@@ -33,10 +33,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from topk_rec_tpu.data.io import read_dat, write_dat
-from topk_rec_tpu.utils import tprint
-from topk_rec_tpu.utils.statelog import StateLog
-
+from ..data.io import read_dat, write_dat
+from ..utils import tprint
+from ..utils.statelog import StateLog
 from .wmf import WMF
 
 

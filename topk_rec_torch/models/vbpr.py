@@ -33,8 +33,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from topk_rec_tpu.utils import tprint
-
 from ..checkpoint import CheckpointManager
 from ..ops.sampling import TripletSampler
 from ..ops.sparse_update import (
@@ -42,6 +40,7 @@ from ..ops.sparse_update import (
     plan_sparse_updates,
     planned_rows,
 )
+from ..utils import tprint
 from .base import Recommender
 from .bpr import INIT_STREAM, stream_generator
 

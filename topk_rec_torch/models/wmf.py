@@ -24,10 +24,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from topk_rec_tpu.data.io import write_dat
-from topk_rec_tpu.utils import tprint
-from topk_rec_tpu.utils.statelog import StateLog
-
+from ..data.io import write_dat
+from ..utils import tprint
+from ..utils.statelog import StateLog
 from ..ops.als import ALSPlan, half_sweep
 from .base import Recommender
 

@@ -1,7 +1,8 @@
-"""Build and load the port's CUDA kernels: nvcc into a plain-C shared library.
+"""Build and load the port's native code: the CUDA kernels (nvcc) and the
+host text parser (g++), each into a plain-C shared library of its own.
 
-The sources under ``topk_rec_torch/csrc`` are compiled at first use, one
-``nvcc`` per source, all started together,
+The CUDA sources under ``topk_rec_torch/csrc`` are compiled at first use,
+one ``nvcc`` per source, all started together,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu
@@ -12,8 +13,13 @@ build directory is keyed on a hash of the sources (``*.cu`` and ``*.cuh``)
 and the flags, so an edited source is rebuilt and an unchanged one is
 reused. The library's entry points take pointers and the stream as
 ``c_void_p`` and return a ``cudaError_t`` value, which the wrappers turn
-into an exception. Nothing here runs at import time: the CPU tests import
-every module, and this machine class has no ``nvcc``.
+into an exception.
+
+The host parser ``csrc/io_native.cpp`` (folds, ``.dat`` text) is compiled
+at its first use with ``g++ -O3 -Wall -fPIC -std=c++17 -shared`` into
+``<build>/<hash>/libtkr_io.so``, keyed the same way; it needs no CUDA and
+never waits on ``nvcc``. Nothing here runs at import time: the tests import
+every module, and a machine without a card has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -36,14 +42,26 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
+HOST_SOURCE = os.path.join(CSRC, "io_native.cpp")
+GXX_FLAGS = ["-O3", "-Wall", "-fPIC", "-std=c++17", "-shared"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_host_lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of this process's build
 
 
 def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _digest(flags, paths) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in paths:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
 
 
 def _nvcc() -> str:
@@ -61,12 +79,8 @@ def _nvcc() -> str:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
-        h.update(os.path.basename(path).encode())
-        with open(path, "rb") as f:
-            h.update(f.read())
-    return h.hexdigest()[:16]
+    return _digest(NVCC_FLAGS, _sources()
+                   + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
 
 
 def _build() -> str:
@@ -120,19 +134,56 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(_build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
+            pi = ctypes.POINTER(ci)
             lib.tkr_topk_fused.argtypes = [vp] * 8 + [ci] * 8 + [vp]
-            lib.tkr_topk_fused.restype = ci
             lib.tkr_count_vs_threshold.argtypes = [vp] * 7 + [ci] * 7 + [vp]
-            lib.tkr_count_vs_threshold.restype = ci
             lib.tkr_topk_floor.argtypes = [vp] * 8 + [ci] * 7 + [vp]
-            lib.tkr_topk_floor.restype = ci
-            for name in ("tkr_topk_max_d", "tkr_topk_chunk"):
-                getattr(lib, name).argtypes = []
+            lib.tkr_topk_geometry.argtypes = [ci] * 3 + [pi] * 3
+            lib.tkr_count_geometry.argtypes = [ci] * 2 + [pi] * 3
+            lib.tkr_floor_geometry.argtypes = [pi] * 2
+            lib.tkr_topk_max_d.argtypes = []
+            for name in ("tkr_topk_fused", "tkr_count_vs_threshold",
+                         "tkr_topk_floor", "tkr_topk_geometry",
+                         "tkr_count_geometry", "tkr_floor_geometry",
+                         "tkr_topk_max_d"):
                 getattr(lib, name).restype = ci
             lib.tkr_error_string.argtypes = [ci]
             lib.tkr_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def _build_host() -> str:
+    out_dir = os.path.join(BUILD_ROOT, _digest(GXX_FLAGS, [HOST_SOURCE]))
+    so = os.path.join(out_dir, "libtkr_io.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(out_dir, exist_ok=True)
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (g++ or c++) on PATH")
+    work = tempfile.mkdtemp(dir=out_dir)
+    try:
+        tmp = os.path.join(work, "libtkr_io.so")
+        cmd = [cxx, *GXX_FLAGS, "-o", tmp, HOST_SOURCE]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(" ".join(cmd) + "\n" + res.stderr[-4000:])
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return so
+
+
+def load_host_library() -> ctypes.CDLL:
+    """Build (if needed) and load the host parser library; cached per
+    process. Raises RuntimeError or OSError if it cannot be built or
+    loaded."""
+    global _host_lib
+    with _lock:
+        if _host_lib is None:
+            _host_lib = ctypes.CDLL(_build_host())
+        return _host_lib
 
 
 def check(err: int, what: str) -> None:

@@ -40,7 +40,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from topk_rec_tpu.data.dataset import Interactions
+from ..data.dataset import Interactions
 
 Triplets = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 

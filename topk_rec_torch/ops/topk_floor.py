@@ -33,8 +33,9 @@ import torch
 from .topk_fused import (
     NEG_INF,
     _check_inputs,
+    _matmul_inputs,
     item_splits,
-    kernel_operands,
+    kernel_checks,
     masked_scores,
 )
 
@@ -71,17 +72,24 @@ def _launch(U, V, bias, excl_bits, exact_matmul, with_index):
     from ._build import check, load_library
 
     lib = load_library()
-    n_u, d = U.shape
+    n_u = U.shape[0]
     n_i = V.shape[0]
-    Ue, Ve, b = kernel_operands(lib, U, V, bias, excl_bits, exact_matmul)
+    b = kernel_checks(lib, U, V, bias, excl_bits)
+    Ue, Ve = _matmul_inputs(U, V, exact_matmul)
+    d = Ue.shape[1]
     dev = U.device
     vals = torch.empty((n_u, LANES), dtype=torch.float32, device=dev)
     idx = (torch.empty((n_u, LANES), dtype=torch.int32, device=dev)
            if with_index else None)
     if n_u == 0:
         return vals, idx
-    # whole 256-item chunks: every split starts on residue 0
-    split_len, n_splits = item_splits(n_u, n_i, 256, dev, 32)
+    # whole chunks of 256 items, so every split starts on residue 0; P1's
+    # tile loop aims at four resident blocks per SM
+    rows, tile = ctypes.c_int(), ctypes.c_int()
+    lib.tkr_floor_geometry(ctypes.byref(rows), ctypes.byref(tile))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split_len, n_splits = item_splits(n_u, n_i, rows.value, tile.value,
+                                      4 * sms, 32)
     pv = pi = None
     if n_splits > 1:
         pv = torch.empty((n_splits, n_u, LANES), dtype=torch.float32,

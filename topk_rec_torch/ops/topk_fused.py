@@ -24,6 +24,7 @@ number of unexcluded items hold ``(NEG_INF, -1)``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -190,31 +191,87 @@ def drop_excluded(idx, excl_bits):
     return torch.where(live & ~hit, idx, -1).to(torch.int32).contiguous()
 
 
-def item_splits(n_u: int, n_i: int, chunk: int, dev, max_splits: int):
-    """(split_len, n_splits) for a kernel whose blocks take 8 user rows and
-    walk the items in chunks of ``chunk``: the catalog is split only when
-    the user rows alone leave SMs idle (small serving batches), and a split
-    is a whole number of chunks."""
-    n_chunks = -(-n_i // chunk)
-    row_blocks = -(-n_u // 8)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits = max(1, min(max_splits, n_chunks, -(-4 * sms // row_blocks)))
-    split_len = -(-n_chunks // n_splits) * chunk
+def item_splits(n_u: int, n_i: int, rows: int, tile: int, slots: int,
+                max_splits: int):
+    """(split_len, n_splits) for a kernel whose blocks take ``rows`` user
+    rows and walk the items in tiles of ``tile``, on a card that holds
+    ``slots`` resident blocks (SMs x blocks per SM). The catalog is split
+    only when the user rows alone leave slots idle (small serving batches);
+    a split is a whole number of tiles, and the splits cover the catalog
+    exactly: split_len·(n_splits - 1) < n_i <= split_len·n_splits."""
+    n_tiles = -(-n_i // tile)
+    row_blocks = -(-n_u // rows)
+    n_splits = max(1, min(max_splits, n_tiles, slots // row_blocks))
+    split_len = -(-n_tiles // n_splits) * tile
     return split_len, -(-n_i // split_len)
 
 
-def kernel_operands(lib, U, V, bias, excl_bits, exact_matmul):
-    """The checks a kernel needs beyond :func:`_check_inputs`, then its
-    operands: U and V in the matmul mode's type, the fp32 bias or None."""
+@functools.lru_cache(maxsize=None)
+def kernel_geometry(name: str, device_index: int, *args):
+    """(rows per block, item tile, resident block slots on the card) of the
+    kernel whose library query is ``name``, called with ``args``."""
+    import ctypes
+
+    from ._build import check, load_library
+
+    lib = load_library()
+    rows, tile, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        err = getattr(lib, name)(*args, ctypes.byref(rows),
+                                 ctypes.byref(tile), ctypes.byref(blocks))
+    check(err, name)
+    if blocks.value < 1:
+        raise RuntimeError(f"{name}{args}: no block fits on an SM")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return rows.value, tile.value, sms * blocks.value
+
+
+def kernel_width(d: int, exact_matmul: bool = True) -> int:
+    """Columns of a [n, d] table as K1 and K2 read it: d rounded up to the
+    kernels' step over d, 4 in fp32 (the exact mode) and 16 in bf16, so
+    that every row is a whole number of 16-byte copies."""
+    step = 4 if exact_matmul else 16
+    return -(-d // step) * step
+
+
+def kernel_table(t: torch.Tensor, exact_matmul: bool = True) -> torch.Tensor:
+    """A [n, d] table as K1 and K2 read it: in the matmul mode's type
+    (float32 for the exact mode, bf16 for the serving mode), contiguous,
+    with rows padded by zero columns to the kernels' step over d (4 in
+    fp32, 16 in bf16) and a 16-byte aligned base, so that every row is a
+    whole number of 16-byte copies. ``t`` itself when it already is one; a
+    zero column leaves every score as it was. Callers that launch a kernel
+    more than once on a table hold it in this form."""
+    dtype = torch.float32 if exact_matmul else torch.bfloat16
+    width = kernel_width(t.shape[1], exact_matmul)
+    if (t.dtype == dtype and t.shape[1] == width and t.is_contiguous()
+            and t.data_ptr() % 16 == 0):
+        return t
+    out = torch.zeros((t.shape[0], width), dtype=dtype, device=t.device)
+    out[:, :t.shape[1]] = t
+    return out
+
+
+def kernel_checks(lib, U, V, bias, excl_bits):
+    """The checks a kernel needs beyond :func:`_check_inputs` (d within the
+    library's limit, contiguous operands); returns the bias as the kernels
+    read it, contiguous fp32, or None."""
     d = U.shape[1]
     if d > lib.tkr_topk_max_d():
         raise ValueError(f"d = {d} exceeds the kernel's {lib.tkr_topk_max_d()}")
     for name, t in (("U", U), ("V", V), ("excl_bits", excl_bits)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    Ue, Ve = _matmul_inputs(U, V, exact_matmul)
-    b = None if bias is None else bias.float().reshape(-1).contiguous()
-    return Ue, Ve, b
+    return None if bias is None else bias.float().reshape(-1).contiguous()
+
+
+def kernel_operands(lib, U, V, bias, excl_bits, exact_matmul):
+    """K1's and K2's operands after :func:`kernel_checks`: U and V as
+    :func:`kernel_table` makes them (no copy for tables already held so),
+    and the fp32 bias or None."""
+    b = kernel_checks(lib, U, V, bias, excl_bits)
+    exact = exact_matmul and not U.dtype == V.dtype == torch.bfloat16
+    return kernel_table(U, exact), kernel_table(V, exact), b
 
 
 def _launch(U, V, bias, excl_bits, k, exact_matmul):
@@ -223,16 +280,20 @@ def _launch(U, V, bias, excl_bits, k, exact_matmul):
     from ._build import check, load_library
 
     lib = load_library()
-    n_u, d = U.shape
+    n_u = U.shape[0]
     n_i = V.shape[0]
     Ue, Ve, b = kernel_operands(lib, U, V, bias, excl_bits, exact_matmul)
+    d = Ue.shape[1]
+    bf16 = int(Ue.dtype == torch.bfloat16)
     dev = U.device
     vals = torch.empty((n_u, k), dtype=torch.float32, device=dev)
     idx = torch.empty((n_u, k), dtype=torch.int32, device=dev)
     if n_u == 0:
         return vals, idx
+    rows, tile, slots = kernel_geometry("tkr_topk_geometry", dev.index or 0,
+                                        k, d, bf16)
     # the merge pass takes at most 32 splits, one per lane
-    split_len, n_splits = item_splits(n_u, n_i, lib.tkr_topk_chunk(), dev, 32)
+    split_len, n_splits = item_splits(n_u, n_i, rows, tile, slots, 32)
     if n_splits > 1:
         sv = torch.empty((n_u, n_splits, k), dtype=torch.float32, device=dev)
         si = torch.empty((n_u, n_splits, k), dtype=torch.int32, device=dev)
@@ -247,8 +308,8 @@ def _launch(U, V, bias, excl_bits, k, exact_matmul):
             p(vals.data_ptr()), p(idx.data_ptr()),
             p(None if sv is None else sv.data_ptr()),
             p(None if si is None else si.data_ptr()),
-            n_u, n_i, d, k, excl_bits.shape[1], split_len, n_splits,
-            int(Ue.dtype == torch.bfloat16), p(stream),
+            n_u, n_i, d, k, excl_bits.shape[1], split_len, n_splits, bf16,
+            p(stream),
         )
     check(err, "fused_score_topk kernel launch")
     fused_score_topk.launches += 1

@@ -47,6 +47,7 @@ from .topk_fused import (
     _check_inputs,
     drop_excluded,
     item_splits,
+    kernel_geometry,
     kernel_operands,
     masked_scores,
     pad_k,
@@ -151,18 +152,21 @@ def _launch_count(U, V, bias, excl_bits, t, exact_matmul):
     from ._build import check, load_library
 
     lib = load_library()
-    n_u, d = U.shape
+    n_u = U.shape[0]
     n_i = V.shape[0]
     Ue, Ve, b = kernel_operands(lib, U, V, bias, excl_bits, exact_matmul)
+    d = Ue.shape[1]
+    bf16 = int(Ue.dtype == torch.bfloat16)
     tt = t.contiguous()
     dev = U.device
     gt = torch.zeros(n_u, dtype=torch.int32, device=dev)
     eq = torch.zeros(n_u, dtype=torch.int32, device=dev)
     if n_u == 0:
         return gt, eq
-    # the splits meet in the kernel's atomics and each stops at its own end:
-    # no limit from a merge pass, and no need to align them to chunks
-    split_len, n_splits = item_splits(n_u, n_i, 1, dev, 65535)
+    # the splits meet in the kernel's atomics: no limit from a merge pass
+    rows, tile, slots = kernel_geometry("tkr_count_geometry", dev.index or 0,
+                                        d, bf16)
+    split_len, n_splits = item_splits(n_u, n_i, rows, tile, slots, 65535)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = ctypes.c_void_p
     with torch.cuda.device(dev):
@@ -170,8 +174,8 @@ def _launch_count(U, V, bias, excl_bits, t, exact_matmul):
             p(Ue.data_ptr()), p(Ve.data_ptr()),
             p(None if b is None else b.data_ptr()), p(excl_bits.data_ptr()),
             p(tt.data_ptr()), p(gt.data_ptr()), p(eq.data_ptr()),
-            n_u, n_i, d, excl_bits.shape[1], split_len, n_splits,
-            int(Ue.dtype == torch.bfloat16), p(stream),
+            n_u, n_i, d, excl_bits.shape[1], split_len, n_splits, bf16,
+            p(stream),
         )
     check(err, "count_vs_threshold kernel launch")
     count_vs_threshold.launches += 1

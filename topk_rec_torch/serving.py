@@ -28,14 +28,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from topk_rec_tpu.data.dataset import Interactions
-
+from .data.dataset import Interactions
 from .device import resolve_device
 from .ops.topk_fused import (
     NEG_INF,
     bitmap_tensor,
     expand_seen_mask,
     fused_score_topk,
+    kernel_table,
     pack_mask,
     topk_stable,
 )
@@ -144,6 +144,18 @@ class TopKServer(nn.Module):
             "bias",
             None if bias is None else table(bias, torch.float32).reshape(-1),
         )
+        # On the card, the kernel methods read U and V as K1 and K2 take
+        # them in the serving mode (bf16, rows zero-padded to 16 columns):
+        # copies made once here, so that no served batch casts or pads the
+        # catalog. On the CPU the kernels' plain twins read U and V.
+        on_card = dev.type == "cuda"
+        for name in ("U", "V"):
+            self.register_buffer(
+                name + "_kernel",
+                kernel_table(getattr(self, name), exact_matmul=False)
+                if on_card else None,
+                persistent=False,
+            )
         self.n_items = self.V.shape[0]
         self.seen_format = seen_format
         n_users = self.U.shape[0]
@@ -192,9 +204,12 @@ class TopKServer(nn.Module):
         uid = torch.as_tensor(np.asarray(user_ids, dtype=np.int64)).to(
             self.U.device
         )
+        U, V = self.U, self.V
+        if method in ("kernel", "hybrid") and self.V_kernel is not None:
+            U, V = self.U_kernel, self.V_kernel
         return _query_local(
-            self.U, self.V, self.bias, self.seen, uid, k, method,
-            self.n_items, self.seen_format,
+            U, V, self.bias, self.seen, uid, k, method, self.n_items,
+            self.seen_format,
         )
 
     def recommend(
