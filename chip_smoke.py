@@ -42,13 +42,16 @@ without the final ``ok`` line):
    methods also with U and V cast and padded in every batch;
 7. "floor": compare P1 (the per-residue running max, the floor of K1)
    with its plain version in both modes and both variants (value only,
-   value + index) on a ragged shape, no bias, a fully masked row, all ties,
-   fewer items than residues and the probe's full shape (69,878 x 10,380,
-   d = 50, 2 % masked), where its twin, the library composition (scores
-   padded to 128 columns, ``amax`` over each residue) and the bound are
-   timed too; then, with the counts at 0, the probe itself:
-   CUDA-event medians of P1-A, P1-B, K1 at k = 1 and K1 at k = 30 on all
-   69,878 users in both modes;
+   value + index) on a ragged shape, no bias, a fully masked row, all ties
+   over catalog splits, fewer items than residues, a served batch of 256
+   users (32 splits) and the probe's full shape (69,878 x 10,380, d = 50,
+   2 % masked), where its plain version, the library composition (scores
+   padded to 128 columns, ``amax`` or ``max`` over each residue) and the
+   bound are timed too (P1-A fp32 and bf16, P1-B fp32); then, with the
+   counts at 0, the probe itself: CUDA-event medians and device times of
+   P1-A, P1-B, K1 at k = 1 and K1 at k = 30 on all 69,878 users in both
+   modes, on tables held as ``kernel_table`` makes them, with
+   ``k1_minus_p1_ms``, and P1-A fp32 on the raw tables;
 8. "train": ``train --model bpr --k 50 --batch-size 256`` for two epochs
    through ``topk_rec_torch.cli.main`` on phase 6's fold (losses finite and
    falling, ``final-U/V/B.dat`` and ``checkpoint.npz`` written), then
@@ -205,12 +208,13 @@ def k2_library(U, V, b, mask, t, exact):
     return (s > tc + eps).sum(1), ((s - tc).abs() <= eps).sum(1)
 
 
-def p1_library(U, V, b, mask, exact):
+def p1_library(U, V, b, mask, exact, with_index=False):
     from topk_rec_torch.ops.topk_fused import NEG_INF
 
     s = library_scores(U, V, b, mask, exact)
     s = torch.nn.functional.pad(s, (0, (-s.shape[1]) % 128), value=NEG_INF)
-    return s.view(s.shape[0], -1, 128).amax(1)
+    s = s.view(s.shape[0], -1, 128)
+    return s.max(1) if with_index else s.amax(1)
 
 
 def compare_topk(got, want):
@@ -351,9 +355,11 @@ def kernel_cases(dev):
 
 
 def device_us(fn, reps=10):
-    """Mean device time per call of each kernel that ``fn`` launches
+    """Mean device time per launch of each kernel that ``fn`` launches
     (torch.profiler's CUDA events), keyed by a short kernel name, in us;
-    the CUDA-event medians elsewhere also hold the host's dispatch."""
+    the CUDA-event medians elsewhere also hold the host's dispatch. The
+    mean is over the launches the profiler recorded, which in a long run
+    may be fewer than ``reps``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -364,10 +370,11 @@ def device_us(fn, reps=10):
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        m = re.search(r"topk_pass1|topk_merge|count_pass", e.key)
+        m = re.search(r"topk_pass1|topk_merge|count_pass|floor_pass|"
+                      r"floor_merge", e.key)
         us = getattr(e, "device_time_total", 0)
-        if m and us > 0:
-            out[m.group(0) + "_us"] = f"{us / reps:.1f}"
+        if m and us > 0 and e.count > 0:
+            out[m.group(0) + "_us"] = f"{us / e.count:.1f}"
     return out or {"device": "not measured"}
 
 
@@ -554,23 +561,30 @@ def compare_floor(got, want, U, V, b, words, exact):
     return float(err.max().item()), mism
 
 
+# (n_u, n_i, d, bias, ties) of phase 7a; N_USERS: probe_case
+FLOOR_CASES = [
+    (37, 301, 13, True, False),      # ragged: n_i % 32, n_i % 128 != 0
+    (130, 1000, 50, False, False),   # no bias
+    (16, 700, 2, False, True),       # all ties, over six catalog splits
+    (5, 90, 8, True, False),         # fewer items than residues
+    (256, N_ITEMS, DIM, True, False),  # a served batch: 32 catalog splits
+    (N_USERS, N_ITEMS, DIM, True, False),  # the probe's full shape
+]
+# the (mode, variant) pairs of P1 whose plain version, library composition
+# and bound are timed at the probe's shape
+FLOOR_YARDS = (("fp32", "A"), ("fp32", "B"), ("bf16", "A"))
+
+
 def floor_cases(dev):
     """Phase 7a: P1 against its plain version, both modes, both variants.
-    Returns (max_abs_err, {plain_ms, library_ms, bound_ms, bound_by} of
-    P1-A fp32 at the probe's shape)."""
+    Returns (max_abs_err, {(mode, variant): {plain_ms, library_ms,
+    bound_ms, bound_by}} at the probe's shape)."""
     from topk_rec_torch.ops.topk_floor import topk_floor, topk_floor_plain
     from topk_rec_torch.ops.topk_fused import expand_seen_mask
 
-    cases = [  # (n_u, n_i, d, bias, ties)
-        (37, 301, 13, True, False),      # ragged: n_i % 32, n_i % 128 != 0
-        (130, 1000, 50, False, False),   # no bias
-        (16, 700, 2, False, True),       # all ties
-        (5, 90, 8, True, False),         # fewer items than residues
-        (N_USERS, N_ITEMS, DIM, True, False),  # the probe's full shape
-    ]
     worst = 0.0
-    yard = {}
-    for n_u, n_i, d, bias, ties in cases:
+    yards = {}
+    for n_u, n_i, d, bias, ties in FLOOR_CASES:
         if n_u == N_USERS:
             U, V, b, words = probe_case(dev)
         else:
@@ -590,55 +604,70 @@ def floor_cases(dev):
                         or with_index and not bool((got[1][2] == -1).all())):
                     raise AssertionError("P1: the masked row is not empty")
                 worst = max(worst, err)
-                fields = dict(n_u=n_u, n_i=n_i, d=d, mode="fp32" if exact
-                              else "bf16", variant="B" if with_index else "A",
-                              max_abs_err=err, mismatches=mism)
-                if n_u == N_USERS and exact and not with_index:
+                mode = "fp32" if exact else "bf16"
+                variant = "B" if with_index else "A"
+                fields = dict(n_u=n_u, n_i=n_i, d=d, mode=mode,
+                              variant=variant, max_abs_err=err,
+                              mismatches=mism)
+                if n_u == N_USERS and (mode, variant) in FLOOR_YARDS:
                     mask = expand_seen_mask(words, n_i) != 0
                     yard = dict(
                         plain_ms=cuda_median_ms(lambda: topk_floor_plain(
-                            U, V, b, words, exact), reps=7, warmup=2),
+                            U, V, b, words, exact, with_index),
+                            reps=7, warmup=2),
                         library_ms=cuda_median_ms(lambda: p1_library(
-                            U, V, b, mask, exact), reps=7, warmup=2),
+                            U, V, b, mask, exact, with_index),
+                            reps=7, warmup=2),
                     )
                     del mask
                     yard["bound_ms"], yard["bound_by"] = bound(
                         2 * n_u * n_i * d,
-                        table_bytes(True, U, V) + nbytes(b, words, *got),
-                        False)
+                        table_bytes(exact, U, V) + nbytes(b, words, *got),
+                        not exact)
+                    yards[(mode, variant)] = yard
                     fields.update({n: (f"{v:.4f}" if isinstance(v, float)
                                        else v) for n, v in yard.items()})
                 phase("floor_vs_plain", **fields)
-    return worst, yard
+    return worst, yards
 
 
 def floor_path(dev):
     """Phase 7b, the probe (probe_topk_floor.py:131-151) with the counts at
     0: medians of P1-A, P1-B, K1 at k = 1 (its variant C) and K1 at k = 30
-    on the same 69,878 users, both modes. Returns (P1 launches, P1-A fp32
-    ms)."""
+    on the same 69,878 users, in both modes, all on tables held as
+    ``kernel_table`` makes them, so that the comparison is of kernels; the
+    profiler's device time of each; ``k1_minus_p1_ms``, K1 at k = 30 less
+    P1-A, the cost of K1's selection over all users. Then P1-A fp32 once on
+    the raw [n, 50] tables, which the wrapper pads in the call. Returns (P1
+    launches, {mode: {"p1_a", "p1_b", "k1_k1", "k1_k30"}: ms})."""
     from topk_rec_torch.ops.topk_floor import topk_floor
-    from topk_rec_torch.ops.topk_fused import fused_score_topk
+    from topk_rec_torch.ops.topk_fused import fused_score_topk, kernel_table
 
     U, V, b, words = probe_case(dev)
     topk_floor.launches = 0
-    ms_a = None
+    out = {}
     for exact in (True, False):
-        ms = {
-            "p1_a": cuda_median_ms(lambda: topk_floor(U, V, b, words, exact)),
-            "p1_b": cuda_median_ms(lambda: topk_floor(U, V, b, words, exact,
-                                                      with_index=True)),
-            "k1_k1": cuda_median_ms(
-                lambda: fused_score_topk(U, V, b, words, 1, exact)),
-            "k1_k30": cuda_median_ms(
-                lambda: fused_score_topk(U, V, b, words, TOP_K, exact)),
+        Up, Vp = kernel_table(U, exact), kernel_table(V, exact)
+        calls = {
+            "p1_a": lambda: topk_floor(Up, Vp, b, words, exact),
+            "p1_b": lambda: topk_floor(Up, Vp, b, words, exact,
+                                       with_index=True),
+            "k1_k1": lambda: fused_score_topk(Up, Vp, b, words, 1, exact),
+            "k1_k30": lambda: fused_score_topk(Up, Vp, b, words, TOP_K,
+                                               exact),
         }
+        ms = {n: cuda_median_ms(fn) for n, fn in calls.items()}
+        fields = {f"{n}_ms": f"{t:.4f}" for n, t in ms.items()}
+        fields["k1_minus_p1_ms"] = f"{ms['k1_k30'] - ms['p1_a']:.4f}"
+        for n, fn in calls.items():
+            fields.update({f"{n}_{k}": v for k, v in device_us(fn).items()})
         if exact:
-            ms_a = ms["p1_a"]
+            fields["p1_a_raw_ms"] = "%.4f" % cuda_median_ms(
+                lambda: topk_floor(U, V, b, words, exact))
+        out["fp32" if exact else "bf16"] = ms
         phase("floor", users=N_USERS, items=N_ITEMS, d=DIM,
-              mode="fp32" if exact else "bf16",
-              **{f"{n}_ms": f"{t:.4f}" for n, t in ms.items()})
-    return topk_floor.launches, ms_a
+              mode="fp32" if exact else "bf16", **fields)
+    return topk_floor.launches, out
 
 
 def write_dat(path, mat):
@@ -1373,7 +1402,7 @@ def main() -> int:
         launches, count_launches, (pu, pi) = main_path(dev, root)
         if launches <= 0 or count_launches <= 0:
             raise AssertionError("the main path never launched K1 or K2")
-        floor_err, floor_yard = floor_cases(dev)
+        floor_err, floor_yards = floor_cases(dev)
         floor_launches, floor_ms = floor_path(dev)
         if floor_launches <= 0:
             raise AssertionError("the floor probe never launched P1")
@@ -1414,8 +1443,8 @@ def main() -> int:
         "replaces": "benchmarks/probe_topk_floor.py:44",
         "launches": floor_launches,
         "max_abs_err": floor_err,
-        "ms": floor_ms,
-        **floor_yard,
+        "ms": floor_ms["fp32"]["p1_a"],
+        **floor_yards[("fp32", "A")],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -59,7 +59,7 @@ def test_plan_equals_jax(small_inter, side, balanced, block_size):
     want = jals.ALSPlan(indptr, flat, n, block_size=block_size,
                         balanced=balanced)
     got = tals.ALSPlan(indptr, flat, n, block_size=block_size,
-                       balanced=balanced)
+                       balanced=balanced, device="cpu")
     assert got.n_blocks == want.n_blocks > 1
     assert got.cap == want.cap
     for name in ("rows_stack", "cols_stack", "deg_stack", "perm"):
@@ -72,7 +72,8 @@ def test_selection_holds_the_plan_pairs(small_inter):
     """Row s of block b's CSR matrix counts slot s's pairs; the extra last
     row takes exactly the padding pairs."""
     indptr, flat = small_inter.user_csr
-    plan = tals.ALSPlan(indptr, flat, small_inter.n_users, block_size=64)
+    plan = tals.ALSPlan(indptr, flat, small_inter.n_users, block_size=64,
+                        device="cpu")
     n_other = small_inter.n_items
     for blk, S in enumerate(plan.selection_for(n_other)):
         dense = np.zeros((plan.block_size + 1, n_other))
@@ -103,7 +104,7 @@ def test_half_sweep_equals_jax(small_inter, with_prior, keep_old, side):
     want, want_fit = jals.half_sweep(jp, this, other, jnp.asarray(rated), a,
                                      b, lam, prior=prior,
                                      keep_old_unrated=keep_old)
-    tp = tals.ALSPlan(indptr, flat, n_this, block_size=64)
+    tp = tals.ALSPlan(indptr, flat, n_this, block_size=64, device="cpu")
     got, got_fit = tals.half_sweep(tp, this, other, rated, a, b, lam,
                                    prior=prior, keep_old_unrated=keep_old)
     np.testing.assert_allclose(got, want, **SWEEP_TOL)
@@ -120,7 +121,7 @@ def test_half_sweep_device_resident(small_inter):
     U = rng.normal(size=(small_inter.n_users, 4)).astype(np.float32)
     V = rng.normal(size=(small_inter.n_items, 4)).astype(np.float32)
     plan = tals.ALSPlan(*small_inter.user_csr, small_inter.n_users,
-                        block_size=16)
+                        block_size=16, device="cpu")
     want, want_fit = tals.half_sweep(plan, U, V, small_inter.rated_items,
                                      1.0, 0.01, 0.05)
     got, got_fit = tals.half_sweep(plan, torch.from_numpy(U),
@@ -140,10 +141,26 @@ def test_weighted_als_user_update_equals_jax(small_inter, tiny_inter):
         want = jals.weighted_als_user_update(U, V, inter, 1.0, 0.01, 0.1,
                                              block_size=bs)
         got = tals.weighted_als_user_update(U, V, inter, 1.0, 0.01, 0.1,
-                                            block_size=bs)
+                                            block_size=bs, device="cpu")
         np.testing.assert_allclose(got, want, **SWEEP_TOL)
     # tiny_inter's user 3 has no positives: its row is kept
     np.testing.assert_array_equal(got[3], U[3])
+
+
+@pytest.mark.parametrize("entry", ["ALSPlan", "weighted_als_user_update"])
+def test_entry_points_default_to_the_card(small_inter, monkeypatch, entry):
+    """Called without a device, the plan and the one-shot update ask for
+    CUDA, as every entry point of the port does: here, with no card, that
+    is an error that names the CPU option, never a silent run on the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    U = np.zeros((small_inter.n_users, 3), np.float32)
+    V = np.zeros((small_inter.n_items, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "ALSPlan":
+            tals.ALSPlan(*small_inter.user_csr, small_inter.n_users)
+        else:
+            tals.weighted_als_user_update(U, V, small_inter, 1.0, 0.01, 0.1)
 
 
 def test_gram_matrix_equals_jax():

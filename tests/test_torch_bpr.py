@@ -32,7 +32,7 @@ from topk_rec_tpu.eval.protocol import evaluate_oracle
 from topk_rec_tpu.models import BPR as JaxBPR
 from topk_rec_tpu.models.bpr import _pairwise_loss as jax_loss
 from topk_rec_tpu.ops import sparse_update as jsu
-from topk_rec_torch.checkpoint import CheckpointManager
+from topk_rec_torch.checkpoint import CheckpointManager, OrbaxCheckpointError
 from topk_rec_torch.data import Interactions as PortInteractions
 from topk_rec_torch.interop import bpr_from_jax, bpr_to_jax
 from topk_rec_torch.models import BPR
@@ -203,6 +203,34 @@ def test_checkpoint_manager_format_and_gc(tmp_path):
     mine = mgr.restore()
     np.testing.assert_array_equal(mine["params"]["ib"], np.arange(3))
     np.testing.assert_array_equal(mine["ms"]["ue"], np.ones((4, 2)))
+
+
+def test_orbax_steps_are_refused(tmp_path):
+    """The JAX manager writes step_{N:08d}/ orbax directories where orbax
+    imports (as it does here), and the port cannot read them. The port's
+    manager counts them as steps, refuses to restore one, or to name the
+    newest step when that is one, with a message that names the JAX
+    package and --ckpt-dir; its GC leaves them alone, and a newer npz step
+    still resumes."""
+    tree = {"params": {"ue": np.arange(8, dtype=np.float32).reshape(4, 2)}}
+    jax_mgr = JaxCheckpoints(str(tmp_path))
+    assert jax_mgr._orbax is not None
+    for step in (1, 2):
+        assert jax_mgr.save(step, tree)
+    assert (tmp_path / "step_00000002").is_dir()
+    mgr = CheckpointManager(str(tmp_path), keep=1)
+    assert mgr.steps() == [1, 2]
+    with pytest.raises(OrbaxCheckpointError, match="--ckpt-dir"):
+        mgr.latest_step()
+    with pytest.raises(OrbaxCheckpointError, match="topk_rec_tpu"):
+        mgr.restore(1)
+    for step in (3, 4):
+        assert mgr.save(step, {"params": {"ue": torch.full((4, 2), step)}})
+    assert mgr.steps() == [1, 2, 4]
+    assert mgr.latest_step() == 4
+    np.testing.assert_array_equal(mgr.restore()["params"]["ue"],
+                                  np.full((4, 2), 4))
+    assert (tmp_path / "step_00000001").is_dir()
 
 
 def test_interchange_port_to_jax(fold, tmp_path):

@@ -194,6 +194,26 @@ def test_train_resumes_from_ckpt_dir(fold_dir, tmp_path, capsys):
             (tmp_path / "b" / name).read_text()
 
 
+def test_train_refuses_an_orbax_ckpt_dir(fold_dir, tmp_path, capsys):
+    """A --ckpt-dir that the JAX package filled through orbax stops the run
+    with exit code 2 and a message naming the flag for a fresh run,
+    instead of training from epoch 0 beside the JAX steps."""
+    from topk_rec_tpu.checkpoint import CheckpointManager as JaxCheckpoints
+
+    ck = tmp_path / "ck"
+    tree = {"params": {"ue": np.ones((4, 2), np.float32)}}
+    assert JaxCheckpoints(str(ck)).save(1, tree)
+    with pytest.raises(SystemExit) as ei:
+        torch_cli.main(["train", "--model", "bpr", "-d", str(fold_dir),
+                        "--k", "4", "--epochs", "2", "--device", "cpu",
+                        "-o", str(tmp_path / "out"), "--ckpt-dir", str(ck)])
+    assert ei.value.code == 2
+    err = capsys.readouterr().err
+    assert "orbax" in err and "--ckpt-dir" in err
+    assert not (tmp_path / "out").exists()
+    assert os.listdir(ck) == ["step_00000001"]
+
+
 @pytest.mark.parametrize("extra,message", [
     (["--model", "dpm"], "not yet ported"),
     (["--model", "bpr", "--mesh", "2x4"], "not yet ported"),

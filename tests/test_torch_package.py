@@ -83,8 +83,22 @@ def test_no_jax_import_lines():
     assert len(_port_modules()) > 30
     # the kernel and parser sources ship with the package
     for name in ("topk_fused.cu", "topk_count.cu", "topk_floor.cu",
-                 "score_tile.cuh", "score_tile_sm90.cuh", "io_native.cpp"):
+                 "score_tile_sm90.cuh", "io_native.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", name))
+
+
+def test_one_tile_loop():
+    """The kernels share one tile loop: score_tile_sm90.cuh is the only
+    header of csrc, and K1, K2 and P1 each include it and run its
+    run_tiles."""
+    csrc = os.path.join(PKG, "csrc")
+    headers = [n for n in os.listdir(csrc) if n.endswith((".cuh", ".h"))]
+    assert headers == ["score_tile_sm90.cuh"]
+    for name in ("topk_fused.cu", "topk_count.cu", "topk_floor.cu"):
+        with open(os.path.join(csrc, name)) as f:
+            text = f.read()
+        assert re.findall(r'#include "([^"]+)"', text) == headers, name
+        assert "run_tiles<" in text, name
 
 
 def test_lazy_package_attributes():

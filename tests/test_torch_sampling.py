@@ -41,7 +41,8 @@ def _check_valid(inter, u, i, j):
 
 @pytest.mark.parametrize("membership", ["bitmap", "sorted"])
 def test_triplets_valid(small_inter, membership):
-    sampler = TripletSampler(_port(small_inter), membership=membership)
+    sampler = TripletSampler(_port(small_inter), membership=membership,
+                             device="cpu")
     assert sampler.membership == membership
     u, i, j = sampler.sample_numpy(_gen(0), 4096)
     assert u.dtype == i.dtype == j.dtype == np.int64
@@ -49,7 +50,7 @@ def test_triplets_valid(small_inter, membership):
 
 
 def test_user_uniformity(small_inter):
-    sampler = TripletSampler(_port(small_inter))
+    sampler = TripletSampler(_port(small_inter), device="cpu")
     u, _, _ = sampler.sample_numpy(_gen(1), 60000)
     counts = np.bincount(u, minlength=small_inter.n_users)
     rated = small_inter.rated_users
@@ -61,7 +62,7 @@ def test_user_uniformity(small_inter):
 
 
 def test_positive_uniform_within_user(small_inter):
-    sampler = TripletSampler(_port(small_inter))
+    sampler = TripletSampler(_port(small_inter), device="cpu")
     u, i, _ = sampler.sample_numpy(_gen(2), 120000)
     target = int(np.argmax(small_inter.user_deg))
     indptr, flat = small_inter.user_csr
@@ -74,7 +75,7 @@ def test_positive_uniform_within_user(small_inter):
 
 def test_negative_distribution(small_inter):
     """Kept negatives are about uniform over each user's non-positives."""
-    sampler = TripletSampler(_port(small_inter))
+    sampler = TripletSampler(_port(small_inter), device="cpu")
     u, _, j = sampler.sample_numpy(_gen(3), 120000)
     target = int(np.argmax(small_inter.user_deg))
     indptr, flat = small_inter.user_csr
@@ -88,8 +89,10 @@ def test_negative_distribution(small_inter):
 
 
 def test_determinism(small_inter):
-    a = TripletSampler(_port(small_inter)).sample_numpy(_gen(7), 256)
-    b = TripletSampler(_port(small_inter)).sample_numpy(_gen(7), 256)
+    a = TripletSampler(_port(small_inter),
+                       device="cpu").sample_numpy(_gen(7), 256)
+    b = TripletSampler(_port(small_inter),
+                       device="cpu").sample_numpy(_gen(7), 256)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
 
@@ -97,8 +100,10 @@ def test_determinism(small_inter):
 def test_sorted_membership_identical_to_bitmap(small_inter):
     """Both stores consume one generator identically: the same seed gives
     byte-identical triplets."""
-    bm = TripletSampler(_port(small_inter), membership="bitmap")
-    so = TripletSampler(_port(small_inter), membership="sorted")
+    bm = TripletSampler(_port(small_inter), membership="bitmap",
+                        device="cpu")
+    so = TripletSampler(_port(small_inter), membership="sorted",
+                        device="cpu")
     for seed in (0, 3, 11):
         a = bm.sample_numpy(_gen(seed), 4096)
         b = so.sample_numpy(_gen(seed), 4096)
@@ -108,15 +113,17 @@ def test_sorted_membership_identical_to_bitmap(small_inter):
 
 def test_membership_auto_selection(small_inter):
     """auto takes the bitmap under the budget and the sorted keys above."""
-    assert TripletSampler(_port(small_inter)).membership == "bitmap"
+    sampler = TripletSampler(_port(small_inter), device="cpu")
+    assert sampler.membership == "bitmap"
     tiny = TripletSampler(_port(small_inter), membership="auto",
-                          bitmap_budget_bytes=1)
+                          bitmap_budget_bytes=1, device="cpu")
     assert tiny.membership == "sorted"
     u, i, j = tiny.sample_numpy(_gen(9), 512)
     assert len(u) == 512
     _check_valid(small_inter, u, i, j)
     with pytest.raises(ValueError, match="membership"):
-        TripletSampler(_port(small_inter), membership="dense")
+        TripletSampler(_port(small_inter), membership="dense",
+                       device="cpu")
 
 
 def test_bpr_training_identical_across_membership(small_inter):
@@ -144,11 +151,20 @@ def test_single_negative_user_both_stores():
     pos_i = np.array([i for i in range(n_items) if i != 17] + [3], np.int32)
     inter = PortInteractions(2, n_items, pos_u, pos_i)
     for membership in ("bitmap", "sorted"):
-        s = TripletSampler(inter, membership=membership)
+        s = TripletSampler(inter, membership=membership, device="cpu")
         u, i, j = s.sample_numpy(_gen(1), 512)
         assert np.all(j[u == 0] == 17), membership
         assert np.all(j[u == 1] != 3), membership
         assert (u == 0).sum() > 100
+
+
+def test_sampler_defaults_to_the_card(small_inter, monkeypatch):
+    """Built without a device, the sampler asks for CUDA, as every entry
+    point of the port does: here, with no card, that is an error that
+    names the CPU option, never a silent run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TripletSampler(_port(small_inter))
 
 
 def _chi2_two_sample(a, b):
@@ -164,7 +180,8 @@ def test_same_distribution_as_jax_sampler(small_inter):
     and the JAX sampler's agree within df + 6·sqrt(2·df) of a two-sample
     chi-square."""
     n = 120000
-    tu, ti, tj = TripletSampler(_port(small_inter)).sample_numpy(_gen(5), n)
+    tu, ti, tj = TripletSampler(_port(small_inter),
+                                device="cpu").sample_numpy(_gen(5), n)
     ju, ji, jj = JaxSampler(small_inter).sample_numpy(
         jax.random.PRNGKey(5), n)
     target = int(np.argmax(small_inter.user_deg))

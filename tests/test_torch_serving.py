@@ -118,6 +118,44 @@ def test_exclude_seen_off_and_buffers(small_inter):
     assert names == {"U", "V", "bias", "seen"}
 
 
+@pytest.mark.parametrize("dim,table_dtype", [(8, None), (16, torch.bfloat16)],
+                         ids=["copies", "aliases"])
+def test_kernel_tables_follow_u_and_v(small_inter, dim, table_dtype):
+    """The kernel methods' copies of U and V, forced here as the card makes
+    them (``kernel_table``), follow the tables through ``load_state_dict``
+    and an in-place edit, so that ``kernel`` and ``hybrid`` keep serving
+    what ``exact`` serves; tables that did not change are not copied
+    again. bf16 tables whose d is a multiple of 16 are their own kernel
+    form: there is no copy, and U itself is served."""
+    from topk_rec_torch.ops.topk_fused import kernel_table
+
+    U, V, b = _tables(small_inter, 11, dim=dim)
+    U2, V2, b2 = _tables(small_inter, 12, dim=dim)
+    users = np.array([0, 3, 5, 17, 21, 44])
+    kw = dict(table_dtype=table_dtype, device="cpu")
+    srv = TopKServer(U, V, b, _port(small_inter), **kw)
+    other = TopKServer(U2, V2, b2, _port(small_inter), **kw)
+    srv.U_kernel = kernel_table(srv.U, exact_matmul=False)
+    srv.V_kernel = kernel_table(srv.V, exact_matmul=False)
+    assert (srv.U_kernel is srv.U) == (table_dtype is not None)
+
+    def served():
+        want = srv.recommend(users, k=10, method="exact")
+        for method in ("kernel", "hybrid"):
+            _assert_same(srv.recommend(users, k=10, method=method), want)
+        return want
+
+    first = served()
+    held = srv.U_kernel, srv.V_kernel
+    served()
+    assert srv.U_kernel is held[0] and srv.V_kernel is held[1]
+    srv.load_state_dict(other.state_dict())
+    assert not np.array_equal(served()[1], first[1])
+    srv.U.copy_(torch.from_numpy(U[::-1].copy()).to(srv.U.dtype))
+    served()
+    assert (srv.U_kernel is srv.U) == (table_dtype is not None)
+
+
 def test_unsupported_options_raise(small_inter):
     U, V, b = _tables(small_inter, 3)
     with pytest.raises(NotImplementedError):

@@ -210,8 +210,9 @@ def _geometries():
         ("K1", _csrc_constant("topk_fused.cu", "kBMBf16"), k1_tile, 32),
         ("K2", _csrc_constant("topk_count.cu", "kCountBM"),
          _csrc_constant("topk_count.cu", "kCountBN"), 65535),
-        ("P1", _csrc_constant("score_tile.cuh", "kRows"),
-         _csrc_constant("score_tile.cuh", "kThreads"), 32),
+        ("P1", _csrc_constant("topk_floor.cu", "kFloorBM"),
+         _csrc_constant("topk_floor.cu", "kFloorBN"),
+         _csrc_constant("topk_floor.cu", "kFloorMaxSplits")),
     ]
 
 

@@ -19,7 +19,11 @@ kernel of their own, and their tables are scored through K1. Its fifth
 slice makes it stand alone, with its own ``data``, ``config``, ``utils``
 and C++ parser, and moves K1 and K2 onto a tile loop for Hopper
 (``csrc/score_tile_sm90.cuh``: fp32 on the CUDA cores, bf16 on the tensor
-cores).
+cores). Its sixth moves P1 onto that loop too, so the kernels share one,
+and repairs three faults: ``TopKServer``'s kernel copies of U and V now
+follow the tables, the checkpoint manager refuses the JAX package's orbax
+steps instead of passing over them, and the sampler and ALS entry points
+default to the card as every other entry point does.
 
 Layout:
   config.py   the entry points' dataclass configuration

@@ -7,8 +7,15 @@ nested dictionary flattened to ``/``-joined keys (``params/ue``,
 ``ms/ie``, ...). The JAX ``CheckpointManager`` reads these files (it takes
 the npz path wherever no orbax directory exists for the step), and this one
 reads the npz files that the JAX package writes without orbax. ``keep``
-bounds the steps retained; ``save_every`` skips steps off that cadence
+bounds the npz steps retained; ``save_every`` skips steps off that cadence
 unless ``force`` is set.
+
+Where orbax imports, the JAX package writes ``step_{N:08d}/`` directories
+instead, which only orbax, and so only JAX, can read. This manager counts
+them as steps, so that it never resumes from an older npz step past them
+or trains from scratch beside them without a word: restoring such a step
+(and ``latest_step`` when the newest step is one) raises
+:class:`OrbaxCheckpointError`, and ``_gc`` leaves them alone.
 """
 
 from __future__ import annotations
@@ -19,6 +26,10 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+
+class OrbaxCheckpointError(RuntimeError):
+    """A step is held as an orbax directory of the JAX package."""
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -55,13 +66,43 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.root, f"step_{step:08d}.npz")
 
+    def _found(self, orbax: bool) -> List[int]:
+        """Steps held as npz files, or (``orbax``) as directories only."""
+        steps = []
+        for name in os.listdir(self.root):
+            m = re.fullmatch(r"step_(\d+)(\.npz)?", name)
+            if m is None:
+                continue
+            path = os.path.join(self.root, name)
+            if orbax:
+                held = (m.group(2) is None and os.path.isdir(path)
+                        and not os.path.exists(path + ".npz"))
+            else:
+                held = m.group(2) is not None
+            if held:
+                steps.append(int(m.group(1)))
+        return sorted(steps)
+
     def steps(self) -> List[int]:
-        found = (re.fullmatch(r"step_(\d+)\.npz", name)
-                 for name in os.listdir(self.root))
-        return sorted(int(m.group(1)) for m in found if m)
+        """Every saved step: npz files and the JAX package's orbax
+        directories."""
+        return sorted(self._found(False) + self._found(True))
+
+    def _refuse(self, step: int) -> OrbaxCheckpointError:
+        return OrbaxCheckpointError(
+            f"{os.path.join(self.root, f'step_{step:08d}')} holds an orbax "
+            "checkpoint of the JAX package (topk_rec_tpu), which "
+            "topk_rec_torch cannot read (it reads step_N.npz files only). "
+            "Resume that run with the JAX package, or start a fresh run "
+            "with --ckpt-dir set to another directory."
+        )
 
     def latest_step(self) -> Optional[int]:
+        """The newest step, or None; raises OrbaxCheckpointError when the
+        newest step is an orbax directory."""
         steps = self.steps()
+        if steps and steps[-1] in self._found(True):
+            raise self._refuse(steps[-1])
         return steps[-1] if steps else None
 
     def save(self, step: int, tree: Any, force: bool = False) -> bool:
@@ -80,10 +121,12 @@ class CheckpointManager:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
+        if step in self._found(True):
+            raise self._refuse(step)
         with np.load(self._path(step)) as data:
             return _unflatten(dict(data))
 
     def _gc(self) -> None:
-        steps = self.steps()
+        steps = self._found(False)  # never an orbax directory
         for old in steps[: -self.keep] if self.keep else []:
             os.remove(self._path(old))

@@ -147,6 +147,7 @@ def train_from_config(cfg: TrainConfig, device="cuda"):
     ``cfg.out_dir`` (``final-*.dat``, and ``checkpoint.npz`` or
     ``final-E.dat`` where the model has them) and return the model
     (cli.py:266-361)."""
+    from .checkpoint import OrbaxCheckpointError
     from .profiling import profile_trace
 
     mc = cfg.model
@@ -176,12 +177,15 @@ def train_from_config(cfg: TrainConfig, device="cuda"):
     save_dir = cfg.out_dir if cfg.save_lag else None
     with profile_trace(cfg.profile_dir):
         if mc.model in ("bpr", "vbpr"):
-            model.train(
-                epochs=cfg.epochs, batch_size=cfg.batch_size,
-                epoch_sample_limit=cfg.epoch_sample_limit,
-                model_path=cfg.warm_start, ckpt_dir=cfg.ckpt_dir,
-                ckpt_every=cfg.ckpt_every,
-            )
+            try:
+                model.train(
+                    epochs=cfg.epochs, batch_size=cfg.batch_size,
+                    epoch_sample_limit=cfg.epoch_sample_limit,
+                    model_path=cfg.warm_start, ckpt_dir=cfg.ckpt_dir,
+                    ckpt_every=cfg.ckpt_every,
+                )
+            except OrbaxCheckpointError as e:
+                raise _fail(str(e))
         else:
             extra = {}
             if mc.model == "wmf" and cfg.theta_init:

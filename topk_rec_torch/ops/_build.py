@@ -140,7 +140,7 @@ def load_library() -> ctypes.CDLL:
             lib.tkr_topk_floor.argtypes = [vp] * 8 + [ci] * 7 + [vp]
             lib.tkr_topk_geometry.argtypes = [ci] * 3 + [pi] * 3
             lib.tkr_count_geometry.argtypes = [ci] * 2 + [pi] * 3
-            lib.tkr_floor_geometry.argtypes = [pi] * 2
+            lib.tkr_floor_geometry.argtypes = [ci] * 2 + [pi] * 3
             lib.tkr_topk_max_d.argtypes = []
             for name in ("tkr_topk_fused", "tkr_count_vs_threshold",
                          "tkr_topk_floor", "tkr_topk_geometry",

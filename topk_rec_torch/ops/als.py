@@ -42,6 +42,8 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 Tensorish = Union[np.ndarray, torch.Tensor]
 
 
@@ -111,7 +113,7 @@ def batched_solve(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 class ALSPlan:
     """The static block layout of one side of the alternation (als.py:128-
     206): the same NumPy construction as JAX, with the stacks on
-    ``device``.
+    ``device``, the card unless the caller asks for the CPU.
 
     Attributes: ``n_this``, ``block_size``, ``n_blocks``, ``cap``,
     ``rows_stack`` / ``cols_stack`` [n_blocks, cap], ``deg_stack``
@@ -128,11 +130,11 @@ class ALSPlan:
         n_this: int,
         block_size: int = 2048,
         balanced: bool = True,
-        device="cpu",
+        device="cuda",
     ):
         self.n_this = n_this
         self.block_size = block_size
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         deg = np.diff(indptr).astype(np.int64)
         n_blocks = max(1, -(-n_this // block_size))
         self.n_blocks = n_blocks
@@ -293,10 +295,10 @@ def weighted_als_user_update(
     b: float,
     lam_u: float,
     block_size: int = 2048,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
     """One-shot user-side update (tests and simple callers, als.py:423-
-    444)."""
+    444), on ``device``."""
     indptr, flat = inter.user_csr
     plan = ALSPlan(indptr, flat, inter.n_users, block_size, device=device)
     new, _ = half_sweep(plan, user_emb, item_emb, inter.rated_items, a, b,

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..data.dataset import Interactions
+from ..device import resolve_device
 
 Triplets = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -144,7 +145,8 @@ class TripletSampler:
     ``membership``: ``"bitmap"`` | ``"sorted"`` | ``"auto"`` (default).
     Auto keeps the dense bitmap while it fits ``bitmap_budget_bytes``
     (1 GiB; MovieLens needs about 87 MB) and takes the sorted keys beyond
-    (sampling.py:193-243).
+    (sampling.py:193-243). The store lives on ``device``, the card unless
+    the caller asks for the CPU.
     """
 
     def __init__(
@@ -153,12 +155,12 @@ class TripletSampler:
         k_candidates: int = 2,
         membership: str = "auto",
         bitmap_budget_bytes: int = 1 << 30,
-        device="cpu",
+        device="cuda",
     ):
         if membership not in ("auto", "bitmap", "sorted"):
             raise ValueError(
                 f"membership must be auto|bitmap|sorted, got {membership!r}")
-        dev = torch.device(device)
+        dev = resolve_device(device)
         indptr, flat = inter.user_csr
         tr = np.asarray(inter.rated_users, dtype=np.int64)
         rows = np.stack([tr, np.asarray(indptr, np.int64)[tr],

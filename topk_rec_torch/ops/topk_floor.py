@@ -13,11 +13,14 @@ bf16-rounded inputs with fp32 accumulation (the probe's
 ``Precision.DEFAULT``).
 
 It selects nothing, so its time on the card is the part of K1's that no
-selection algorithm can remove: K1's tile loop with a compare per score.
-CUDA tensors launch the hand-written kernel (``csrc/topk_floor.cu``) and
-count one launch in ``topk_floor.launches``; CPU tensors run the plain
-version, :func:`topk_floor_plain`, which is also what the kernel is
-checked against on the card.
+selection algorithm can remove: K1's tile loop (``score_tile_sm90.cuh``)
+with a running max per residue in registers, reading a seen bit only for a
+score that would raise its max. CUDA tensors launch the hand-written kernel
+(``csrc/topk_floor.cu``) on U and V as :func:`kernel_table` makes them (no
+copy for tables already held so) and count one launch in
+``topk_floor.launches``; CPU tensors run the plain version,
+:func:`topk_floor_plain`, which is also what the kernel is checked against
+on the card.
 
 The probe's ``make_kernel`` is a closure inside its ``main()``, so no test
 calls it; the tests hold the plain version to a NumPy transcription of its
@@ -33,9 +36,9 @@ import torch
 from .topk_fused import (
     NEG_INF,
     _check_inputs,
-    _matmul_inputs,
     item_splits,
-    kernel_checks,
+    kernel_geometry,
+    kernel_operands,
     masked_scores,
 )
 
@@ -74,22 +77,20 @@ def _launch(U, V, bias, excl_bits, exact_matmul, with_index):
     lib = load_library()
     n_u = U.shape[0]
     n_i = V.shape[0]
-    b = kernel_checks(lib, U, V, bias, excl_bits)
-    Ue, Ve = _matmul_inputs(U, V, exact_matmul)
+    Ue, Ve, b = kernel_operands(lib, U, V, bias, excl_bits, exact_matmul)
     d = Ue.shape[1]
+    bf16 = int(Ue.dtype == torch.bfloat16)
     dev = U.device
     vals = torch.empty((n_u, LANES), dtype=torch.float32, device=dev)
     idx = (torch.empty((n_u, LANES), dtype=torch.int32, device=dev)
            if with_index else None)
     if n_u == 0:
         return vals, idx
-    # whole chunks of 256 items, so every split starts on residue 0; P1's
-    # tile loop aims at four resident blocks per SM
-    rows, tile = ctypes.c_int(), ctypes.c_int()
-    lib.tkr_floor_geometry(ctypes.byref(rows), ctypes.byref(tile))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    split_len, n_splits = item_splits(n_u, n_i, rows.value, tile.value,
-                                      4 * sms, 32)
+    # whole tiles of 128 items, so every split starts on residue 0; the
+    # merge pass folds at most 32 splits, as K1's does
+    rows, tile, slots = kernel_geometry("tkr_floor_geometry", dev.index or 0,
+                                        d, bf16)
+    split_len, n_splits = item_splits(n_u, n_i, rows, tile, slots, 32)
     pv = pi = None
     if n_splits > 1:
         pv = torch.empty((n_splits, n_u, LANES), dtype=torch.float32,
@@ -107,7 +108,7 @@ def _launch(U, V, bias, excl_bits, exact_matmul, with_index):
         err = lib.tkr_topk_floor(
             ptr(Ue), ptr(Ve), ptr(b), ptr(excl_bits), ptr(vals), ptr(idx),
             ptr(pv), ptr(pi), n_u, n_i, d, excl_bits.shape[1], split_len,
-            n_splits, int(Ue.dtype == torch.bfloat16), p(stream),
+            n_splits, bf16, p(stream),
         )
     check(err, "topk_floor kernel launch")
     topk_floor.launches += 1

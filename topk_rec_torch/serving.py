@@ -146,16 +146,15 @@ class TopKServer(nn.Module):
         )
         # On the card, the kernel methods read U and V as K1 and K2 take
         # them in the serving mode (bf16, rows zero-padded to 16 columns):
-        # copies made once here, so that no served batch casts or pads the
-        # catalog. On the CPU the kernels' plain twins read U and V.
-        on_card = dev.type == "cuda"
+        # copies, so that no served batch casts or pads the catalog. They
+        # are made here and remade by ``_kernel_tables`` when U or V changed
+        # since (``load_state_dict``, an in-place edit, ``to``). On the CPU
+        # the kernels' plain twins read U and V.
+        self._kernel_key = None
         for name in ("U", "V"):
-            self.register_buffer(
-                name + "_kernel",
-                kernel_table(getattr(self, name), exact_matmul=False)
-                if on_card else None,
-                persistent=False,
-            )
+            self.register_buffer(name + "_kernel", None, persistent=False)
+        if dev.type == "cuda":
+            self._make_kernel_tables()
         self.n_items = self.V.shape[0]
         self.seen_format = seen_format
         n_users = self.U.shape[0]
@@ -179,6 +178,31 @@ class TopKServer(nn.Module):
             seen = torch.zeros((n_users, n_words), dtype=torch.int32,
                                device=dev)
         self.register_buffer("seen", seen)
+
+    def _table_key(self):
+        """What identifies the contents of U and V without reading them:
+        each table's version counter (bumped by every in-place write),
+        storage, shape and type."""
+        return tuple((t._version, t.data_ptr(), tuple(t.shape), t.dtype)
+                     for t in (self.U, self.V))
+
+    def _make_kernel_tables(self):
+        # kernel_table returns a table already in kernel form (bf16, d a
+        # multiple of 16) itself: then the "copy" is the table
+        self.U_kernel = kernel_table(self.U, exact_matmul=False)
+        self.V_kernel = kernel_table(self.V, exact_matmul=False)
+        self._kernel_key = self._table_key()
+
+    def _kernel_tables(self):
+        """(U, V) as the kernel methods read them: the kernel copies,
+        remade first if U or V changed since they were made (no host sync,
+        and no launch when nothing changed); U and V themselves where no
+        copies are held."""
+        if self.V_kernel is None:
+            return self.U, self.V
+        if self._table_key() != self._kernel_key:
+            self._make_kernel_tables()
+        return self.U_kernel, self.V_kernel
 
     @classmethod
     def from_model(cls, model, exclude_seen: bool = True,
@@ -205,8 +229,8 @@ class TopKServer(nn.Module):
             self.U.device
         )
         U, V = self.U, self.V
-        if method in ("kernel", "hybrid") and self.V_kernel is not None:
-            U, V = self.U_kernel, self.V_kernel
+        if method in ("kernel", "hybrid"):
+            U, V = self._kernel_tables()
         return _query_local(
             U, V, self.bias, self.seen, uid, k, method, self.n_items,
             self.seen_format,
