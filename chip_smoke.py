@@ -74,7 +74,29 @@ without the final ``ok`` line):
    rise) and of the trained ones with ``--engine torch`` (the engines
    agree within 2/count); trained beats untrained on zp for all three and
    on zom for VBPR and CER. Then the layers' times: VBPR ms and launches
-   per step, one ALS half-sweep per side, CER's E-solve and its CG steps.
+   per step, one ALS half-sweep per side, CER's E-solve and its CG steps;
+10. "dpm": through ``topk_rec_torch.cli.main`` at k = 50 on phase 9's
+   ``meta.pkl`` (d = 20,000), ``train --model dpm`` with the MLP encoder
+   (d -> 2000 -> 1000 -> 50, 5 iterations, ``--log-dir``, ``--save-lag 1``)
+   and with the SDAE encoder (4 iterations after its three pretraining
+   epochs per hidden layer), and the untrained tables (``--max-iter 0``);
+   losses finite and the last below the first, the files written;
+   ``evaluate -sl zp zom`` of the three table sets through K1 (its count
+   must rise) and of the trained ones with ``--engine torch`` (the engines
+   agree within 2/count); the trained MLP-DPM beats its untrained tables
+   on zp and zom.
+   Then one iteration's split by CUDA events (encoder predict, the two
+   half-sweeps, the encoder's fit sweep), the fit sweep's steps, launches
+   per step and busy share at batch 64 and 1,024, and the SDAE's
+   pretraining time per layer-epoch;
+11. "fuse": ``fuse --strategy average|rank|error|svm|bpr`` and ``rank
+   --p-sweep`` through the CLI over the trained VBPR, WMF, CER (phase 9)
+   and MLP-DPM (phase 10) tables, F = 4, on zp and zom: every accuracy
+   finite and in [0, 1]; each strategy's wall time, the time of its weight
+   fit and its CSV lines. Then the fused evaluation is held to K1:
+   ``evaluate_fused`` with average weights against
+   ``DeviceEvaluator(use_kernel=True)`` on the concatenated tables
+   [w_f·U_f] and [V_f] (d = 200), within 2/count on zp and zom.
 
 The line before the last is the kernels' JSON record (per kernel: its
 launches on the main path, max error against its twin, and ms, plain_ms,
@@ -152,6 +174,30 @@ def cuda_median_ms(fn, reps=15, warmup=3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_ms(fn):
+    """(fn(), its CUDA-event time in ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def profiled_kernels(fn):
+    """The CUDA kernels torch.profiler records during fn()."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 # Published peaks of one H100 SXM (dense, at the full 700 W): float32 outside
@@ -1213,20 +1259,22 @@ def content_train(dev, root, n_pos):
     return dirs
 
 
-def content_evaluate(dev, root, dirs, counts):
-    """Phase 9b: ``evaluate -sl zp zom`` of every model's tables, trained
-    and untrained, with ``--engine kernel``, and of the trained ones with
-    ``--engine torch``. K1's count must rise in every kernel run, the
+def content_evaluate(dev, root, dirs, counts, tag="content"):
+    """Phase 9b (and 10b): ``evaluate -sl zp zom`` of every model's tables,
+    trained and untrained, with ``--engine kernel``, and of the trained ones
+    with ``--engine torch``. K1's count must rise in every kernel run, the
     engines agree within 2/count, and the trained tables beat the
-    untrained on zp (all three) and on zom (VBPR and CER). Returns K1's
-    launches."""
+    untrained on zp (every model) and on zom (all but WMF); a model whose
+    untrained dir is None is only evaluated. Returns K1's launches."""
     from topk_rec_torch.ops.topk_fused import fused_score_topk
 
     fused_score_topk.launches = 0
     for name, (trained, untrained) in dirs.items():
         acc = {}
-        for model, engine in ((trained, "kernel"), (trained, "torch"),
-                              (untrained, "kernel")):
+        runs = [(trained, "kernel"), (trained, "torch")]
+        if untrained is not None:
+            runs.append((untrained, "kernel"))
+        for model, engine in runs:
             before = fused_score_topk.launches
             lines, wall = run_cli(["evaluate", "-d", root, "-m", model, "-f",
                                    "0", "-sl", "zp", COLD, "--engine", engine,
@@ -1238,24 +1286,26 @@ def content_evaluate(dev, root, dirs, counts):
             acc[(model, engine)] = {ln.split(",")[0]:
                                     np.array(ln.split(",")[1:], float)
                                     for ln in lines}
-            phase("content_evaluate", model=os.path.basename(model),
+            phase(f"{tag}_evaluate", model=os.path.basename(model),
                   engine=engine, wall_s=f"{wall:.3f}", launches=n,
                   csv="|".join(lines))
         fields = {}
         for sc, count in counts.items():
             a_k = acc[(trained, "kernel")][sc]
             a_t = acc[(trained, "torch")][sc]
-            a_0 = acc[(untrained, "kernel")][sc]
             if not np.all(np.abs(a_k - a_t) <= 2 / count):
                 raise AssertionError(f"{name} {sc}: engines disagree: {a_k} "
                                      f"vs {a_t}")
             fields[f"{sc}_trained_at_30"] = a_k[-1]
+            if untrained is None:
+                continue
+            a_0 = acc[(untrained, "kernel")][sc]
             fields[f"{sc}_untrained_at_30"] = a_0[-1]
             if (sc == "zp" or name != "wmf") and not a_k[-1] > a_0[-1]:
                 raise AssertionError(
                     f"{name} {sc}: trained accuracy@30 {a_k[-1]} <= "
                     f"untrained {a_0[-1]}")
-        phase("content_accuracy", model=name, **fields)
+        phase(f"{tag}_accuracy", model=name, **fields)
     return fused_score_topk.launches
 
 
@@ -1287,16 +1337,7 @@ def content_rates(dev, root, feat):
     end.record()
     end.synchronize()
     step_ms = start.elapsed_time(end) / (n_chunks * steps)
-
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        model.train_chunk(gen, steps, 256)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = profiled_kernels(lambda: model.train_chunk(gen, steps, 256))
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     phase("content_vbpr_step", batch=256, d=CONTENT_D, k=CONTENT_K,
           ms_per_step=f"{step_ms:.4f}",
@@ -1344,7 +1385,9 @@ def content_rates(dev, root, feat):
 
 def content_path(dev, root):
     """Phase 9: the content and ALS trainers at k = 50, d = 20000 on phase
-    6's fold, then their tables through K1. Returns K1's launches."""
+    6's fold, then their tables through K1. Returns K1's launches, the
+    {model: (trained dir, untrained dir)}, the held-out likes per scenario
+    and the features."""
     from topk_rec_torch.cli import _load_fold
 
     t0 = time.perf_counter()
@@ -1358,11 +1401,254 @@ def content_path(dev, root):
           liked_pairs=n_pos,
           write_s=f"{time.perf_counter() - t0:.2f}")
     dirs = content_train(dev, root, n_pos)
-    launches = content_evaluate(dev, root, dirs, {"zp": n_zp, COLD: n_cold})
+    counts = {"zp": n_zp, COLD: n_cold}
+    launches = content_evaluate(dev, root, dirs, counts)
     content_rates(dev, root, feat)
     phase("content", seconds=f"{time.perf_counter() - t0:.2f}",
           k1_launches=launches)
-    return launches
+    return launches, dirs, counts, feat
+
+
+# of the reference's 200 iterations. DPM's loss need not fall at every
+# iteration (V restarts from the encoder's prediction each time): on the
+# card the MLP run's rose at its second of three (234,291, 237,040,
+# 235,182), so the runs are long enough for the last to be below the first
+DPM_ITERS = {"mlp": 5, "sdae": 4}
+FIT_BATCHES = (64, 1024)  # the reference MLP's batch, and DPM's fast mode
+
+
+def dpm_train(dev, root):
+    """Phase 10a: ``train --model dpm`` at k = 50, d = 20,000 through the CLI
+    with the MLP encoder (``--log-dir``, ``--save-lag 1``) and the SDAE
+    encoder, and the MLP's untrained tables. Returns {run: dir}."""
+    content = ["--content", "meta.pkl", "--d", str(CONTENT_D)]
+    runs = {  # run: (encoder, iterations, extra flags)
+        "dpm": ("mlp", DPM_ITERS["mlp"],
+                ["--save-lag", "1", "--log-dir", os.path.join(root, "dpm")]),
+        "dpm_sdae": ("sdae", DPM_ITERS["sdae"], []),
+        "dpm0": ("mlp", 0, []),
+    }
+    dirs = {}
+    for name, (encoder, iters, extra) in runs.items():
+        out = os.path.join(root, name)
+        lines, wall = run_cli(
+            ["train", "--model", "dpm", "-d", root, "-o", out, "--k",
+             str(CONTENT_K), "--encoder", encoder, "--max-iter", str(iters),
+             "--device", str(dev)] + content + extra)
+        hits = [m for m in map(ITER_RE.search, lines) if m]
+        losses = [float(m.group(1)) for m in hits]
+        phase("dpm_train", run=name, encoder=encoder, k=CONTENT_K,
+              d=CONTENT_D, hidden="2000x1000", wall_s=f"{wall:.3f}",
+              losses="|".join(m.group(1) for m in hits),
+              s_per_iter="|".join(m.group(2) for m in hits),
+              cut=f"{iters}_of_200_iterations")
+        if len(losses) != iters or not np.all(np.isfinite(losses)) or (
+                iters and not losses[-1] < losses[0]):
+            raise AssertionError(f"{name}: losses not finite, or the last "
+                                 f"not below the first: {losses}")
+        files = ["final-U.dat", "final-V.dat", "checkpoint.npz"]
+        if extra:
+            files += ["state.log", "settings.txt", "0000-U.dat"]
+        for f in files:
+            if not os.path.exists(os.path.join(out, f)):
+                raise AssertionError(f"train --model dpm ({name}) wrote no "
+                                     f"{f}")
+        dirs[name] = out
+    return dirs
+
+
+def dpm_rates(dev, root, feat):
+    """Phase 10c: the layers' times on the card. One DPM iteration after a
+    warm-up one, split by CUDA events into the encoder's predict, the user
+    and item half-sweeps and the encoder's fit sweep (batch 64); the fit
+    sweep at batch 64 and 1,024 (CUDA events over two sweeps after a
+    warm-up) with torch.profiler's launches per step and the busy share;
+    and one SDAE pretraining epoch of each hidden layer."""
+    from topk_rec_torch.cli import _load_fold
+    from topk_rec_torch.models import DPM, MLPEncoder, SDAEEncoder
+    from topk_rec_torch.models.encoders import _dae_pretrain_epoch
+    from topk_rec_torch.ops.als import half_sweep
+
+    inter, _, _ = _load_fold(root, 0)
+    model = DPM(k=CONTENT_K, d=CONTENT_D, device=dev)
+    model.set_interactions(inter)
+    model.set_features(feat)
+    enc = MLPEncoder(CONTENT_K, CONTENT_D, device=dev)
+    t = model._device_tables()
+
+    def iteration():
+        Fe, predict = timed_ms(lambda: enc._predict_dev(feat))
+        (t.U, _), users = timed_ms(lambda: half_sweep(
+            model._user_plan, t.U, Fe, model._rated_items, model.a, model.b,
+            model.lu, as_numpy=False))
+        (t.V, fit), items = timed_ms(lambda: half_sweep(
+            model._item_plan, Fe, t.U, model._rated_users, model.a, model.b,
+            model.lv, prior=Fe, as_numpy=False))
+        loss, sweep = timed_ms(lambda: enc._fit_sweep(feat, t.V))
+        return float(fit + loss), (predict, users, items, sweep)
+
+    iteration()  # warm-up
+    loss, split = iteration()
+    phase("dpm_iteration", batch=64, loss=f"{loss:.6f}",
+          predict_ms=f"{split[0]:.4f}", user_sweep_ms=f"{split[1]:.4f}",
+          item_sweep_ms=f"{split[2]:.4f}", fit_sweep_ms=f"{split[3]:.4f}",
+          total_ms=f"{sum(split):.4f}")
+    for batch in FIT_BATCHES:
+        enc.batch_size = batch
+        enc._fit_sweep(feat, t.V)  # warm-up
+        sweep_ms = cuda_median_ms(lambda: enc._fit_sweep(feat, t.V), reps=2,
+                                  warmup=0)
+        kernels = profiled_kernels(lambda: enc._fit_sweep(feat, t.V))
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        steps = -(-N_ITEMS // batch)
+        phase("dpm_fit_sweep", batch=batch, steps=steps,
+              sweep_ms=f"{sweep_ms:.4f}",
+              ms_per_step=f"{sweep_ms / steps:.4f}",
+              kernels_per_step=f"{len(kernels) / steps:.1f}",
+              busy_share=(f"{busy_us / (sweep_ms * 1e3):.4f}" if kernels
+                          else "not measured"))
+    del model, enc, t
+
+    sdae = SDAEEncoder(CONTENT_K, CONTENT_D, device=dev)
+    H = sdae._feat_dev(feat)
+    epoch_ms = []
+    for li in range(sdae.n_layers - 1):
+        W, b = sdae.params[li]
+        p = [W, b, W.detach().T.contiguous().requires_grad_(),
+             torch.zeros(W.shape[0], device=dev, requires_grad=True)]
+        acc = [torch.zeros_like(x) for x in p]
+
+        def epoch():
+            idx, ok = sdae._batches(H.shape[0])
+            masks = sdae._draw_masks(idx.shape[0] // sdae.batch_size,
+                                     W.shape[0])
+            return float(_dae_pretrain_epoch(
+                p, acc, H, idx, ok, masks, sdae.pretrain_lr, sdae.batch_size,
+                li == 0))
+
+        loss, ms = timed_ms(epoch)
+        if not np.isfinite(loss):
+            raise AssertionError(f"SDAE layer {li}: loss {loss}")
+        epoch_ms.append(ms)
+        with torch.no_grad():
+            H = torch.sigmoid(torch.addmm(b, H, W))
+    phase("dpm_sdae_pretrain", batch=sdae.batch_size,
+          **{f"layer{i}_epoch_ms": f"{ms:.4f}" for i, ms in
+             enumerate(epoch_ms)},
+          layer_widths=f"{CONTENT_D}x2000|2000x1000")
+
+
+def dpm_path(dev, root, feat, counts):
+    """Phase 10: DPM with each encoder on phase 9's fold and features, its
+    tables through K1, and the layers' times. Returns K1's launches and the
+    trained MLP-DPM's dir."""
+    t0 = time.perf_counter()
+    dirs = dpm_train(dev, root)
+    launches = content_evaluate(
+        dev, root, {"dpm": (dirs["dpm"], dirs["dpm0"]),
+                    "dpm_sdae": (dirs["dpm_sdae"], None)}, counts, tag="dpm")
+    dpm_rates(dev, root, feat)
+    phase("dpm", seconds=f"{time.perf_counter() - t0:.2f}",
+          k1_launches=launches)
+    return launches, dirs["dpm"]
+
+
+def check_fuse_lines(lines, names):
+    """Each line ``name,acc@5,...,acc@30``: the names in order, six
+    accuracies, finite and in [0, 1]."""
+    if [ln.split(",")[0] for ln in lines] != names:
+        raise AssertionError(f"fuse printed {lines}, expected {names}")
+    for ln in lines:
+        acc = np.array(ln.split(",")[1:], float)
+        if acc.shape != (6,) or not np.all(np.isfinite(acc)) or \
+                not np.all((acc >= 0) & (acc <= 1)):
+            raise AssertionError(f"fuse: implausible accuracies: {ln}")
+
+
+def fuse_path(dev, root, models):
+    """Phase 11: ``fuse`` of the four trained modalities through the CLI
+    with every strategy and the p-sweep; the weight fits timed alone (the
+    CLI's sample counts); then ``evaluate_fused`` with average weights held
+    to K1 on the concatenated tables. Returns K1's launches."""
+    from topk_rec_torch.cli import FUSE_STRATEGIES, _load_fold, \
+        _read_model_mat, _scenario_inputs
+    from topk_rec_torch.eval.device import DeviceEvaluator
+    from topk_rec_torch.fusion import (
+        ModalityScores,
+        average_weights,
+        bpr_fusion_weights,
+        error_weights,
+        evaluate_fused,
+        svm_fusion_weights,
+    )
+    from topk_rec_torch.ops.topk_fused import fused_score_topk
+
+    t0 = time.perf_counter()
+    fused_score_topk.launches = 0
+    scen = ["zp", COLD]
+    common = ["-d", root, "-m", *models, "-sl", *scen, "--device", str(dev)]
+    for strategy in FUSE_STRATEGIES:
+        lines, wall = run_cli(["fuse", "--strategy", strategy] + common)
+        check_fuse_lines(lines, [f"{strategy}-{sc}" for sc in scen])
+        phase("fuse", strategy=strategy, modalities=len(models),
+              wall_s=f"{wall:.3f}", csv="|".join(lines))
+    lines, wall = run_cli(["fuse", "--strategy", "rank", "--p-sweep"]
+                          + common)
+    check_fuse_lines(lines, [f"rank-p{p / 10}-{sc}" for p in range(1, 10)
+                             for sc in scen])
+    phase("fuse", strategy="rank_p_sweep", lines=len(lines),
+          wall_s=f"{wall:.3f}", csv="|".join(lines))
+
+    inter, uids, iids = _load_fold(root, 0)
+    emb = [(_read_model_mat(m, "final-U.dat", uids),
+            _read_model_mat(m, "final-V.dat", iids)) for m in models]
+    mods = ModalityScores(emb, device=dev)
+    fits = (("error", lambda: error_weights(mods, inter,
+                                            np.arange(inter.n_items))),
+            ("svm", lambda: svm_fusion_weights(mods, inter)),
+            ("bpr", lambda: bpr_fusion_weights(mods, inter)))
+    for name, fit in fits:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        w = fit()  # host arrays: the card is done
+        fit_ms = (time.perf_counter() - t1) * 1e3
+        shown = (f"mean_{'|'.join(f'{x:.4f}' for x in w.mean(0))}"
+                 if w.ndim == 2 else "|".join(f"{x:.6f}" for x in w))
+        if not np.all(np.isfinite(w)):
+            raise AssertionError(f"{name} weights not finite: {w}")
+        phase("fuse_fit", strategy=name, fit_ms=f"{fit_ms:.1f}",
+              samples={"error": 0, "svm": 100_000, "bpr": 10_000_000}[name],
+              weights=shown)
+
+    w = average_weights(len(models))
+    U_cat = np.concatenate([w[f] * U for f, (U, _) in enumerate(emb)], 1)
+    V_cat = np.concatenate([V for _, V in emb], 1)
+    ev = DeviceEvaluator(inter.seen_bitmap, use_kernel=True, want_rr=False,
+                         device=dev)
+    for sc in scen:
+        cand_ids, likes = _scenario_inputs(root, 0, sc, uids, iids)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fused = evaluate_fused(mods, w, inter.seen_bitmap, cand_ids, likes)
+        fused_ms = (time.perf_counter() - t1) * 1e3
+        before = fused_score_topk.launches
+        t1 = time.perf_counter()
+        k1 = ev.evaluate(U_cat, V_cat, None, cand_ids, likes)
+        k1_ms = (time.perf_counter() - t1) * 1e3
+        n = fused_score_topk.launches - before
+        a_f, a_k = fused.accuracy, k1.accuracy
+        phase("fuse_k1", scenario=sc, d=V_cat.shape[1], likes=fused.count,
+              launches=n, evaluate_fused_ms=f"{fused_ms:.1f}",
+              k1_evaluate_ms=f"{k1_ms:.1f}",
+              fused="|".join(f"{x:.6f}" for x in a_f),
+              k1="|".join(f"{x:.6f}" for x in a_k))
+        if n <= 0 or fused.count != k1.count or \
+                not np.all(np.abs(a_f - a_k) <= 2 / fused.count):
+            raise AssertionError(f"evaluate_fused {a_f} vs K1 {a_k} on {sc} "
+                                 f"({n} launches)")
+    phase("fuse_done", seconds=f"{time.perf_counter() - t0:.2f}",
+          k1_launches=fused_score_topk.launches)
+    return fused_score_topk.launches
 
 
 def main() -> int:
@@ -1411,13 +1697,21 @@ def main() -> int:
             raise AssertionError("the trained tables never went through K1 "
                                  "or K2")
         train_rate(dev, root)
-        c_launches = content_path(dev, root)
+        c_launches, dirs, counts, feat = content_path(dev, root)
         if c_launches <= 0:
             raise AssertionError("the content models' tables never went "
                                  "through K1")
+        d_launches, dpm_dir = dpm_path(dev, root, feat, counts)
+        if d_launches <= 0:
+            raise AssertionError("the DPM tables never went through K1")
+        del feat
+        f_launches = fuse_path(dev, root, [dirs["vbpr"][0], dirs["wmf"][0],
+                                           dirs["cer"][0], dpm_dir])
+        if f_launches <= 0:
+            raise AssertionError("the fusion check never launched K1")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    launches += t_launches + c_launches
+    launches += t_launches + c_launches + d_launches + f_launches
     count_launches += t_count_launches
 
     print(json.dumps({"kernels": [{

@@ -215,7 +215,6 @@ def test_train_refuses_an_orbax_ckpt_dir(fold_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--model", "dpm"], "not yet ported"),
     (["--model", "bpr", "--mesh", "2x4"], "not yet ported"),
     (["--model", "cer", "--mesh", "2x4"], "not yet ported"),
 ])
@@ -228,7 +227,14 @@ def test_train_unported_exits_2(fold_dir, tmp_path, capsys, extra, message):
     assert not (tmp_path / "out").exists()
 
 
-# per model: its own flags, and the files both CLIs write for them
+DPM_FLAGS = ["--content", "meta.pkl", "--d", str(CONTENT_D), "--max-iter",
+             "2", "--encoder-hidden", "32", "16", "--save-lag", "1"]
+DPM_FILES = ["0000-U.dat", "0000-V.dat", "0001-U.dat", "0001-V.dat",
+             "checkpoint.npz", "final-U.dat", "final-V.dat", "settings.txt",
+             "state.log"]
+
+# per case (the model, then any variant): its own flags, and the files both
+# CLIs write for them
 TRAIN_CASES = {
     "vbpr": (["--content", "meta.pkl", "--d", str(CONTENT_D), "--epochs",
               "2", "--batch-size", "64", "--lr", "0.05"],
@@ -239,20 +245,24 @@ TRAIN_CASES = {
             ["0000-U.dat", "0000-V.dat", "0001-U.dat", "0001-V.dat",
              "0002-U.dat", "0002-V.dat", "final-E.dat", "final-U.dat",
              "final-V.dat", "settings.txt", "state.log"]),
+    "dpm": (DPM_FLAGS, DPM_FILES),
+    "dpm-sdae": (DPM_FLAGS + ["--encoder", "sdae"], DPM_FILES),
 }
 
 
 @pytest.mark.parametrize("model", sorted(TRAIN_CASES))
 def test_train_content_and_als_models(fold_dir, tmp_path, capsys, model):
-    """``train --model {vbpr,wmf,cer} --device cpu`` writes the files that
-    the JAX CLI's ``train`` writes, and the JAX CLI's ``evaluate`` reads the
-    port's tables into the CSV that the port's prints (both engines)."""
+    """``train --model {vbpr,wmf,cer,dpm} --device cpu`` (DPM with both
+    encoders) writes the files that the JAX CLI's ``train`` writes, and the
+    JAX CLI's ``evaluate`` reads the port's tables into the CSV that the
+    port's prints (both engines)."""
     flags, files = TRAIN_CASES[model]
+    model = model.split("-")[0]
     outs = {}
     for name, cli, extra in (("port", torch_cli, ["--device", "cpu"]),
                              ("jax", jax_cli, [])):
         out = tmp_path / name
-        log = ["--log-dir", str(out)] if model == "cer" else []
+        log = ["--log-dir", str(out)] if model in ("cer", "dpm") else []
         assert cli.main(["train", "--model", model, "-d", str(fold_dir),
                          "-o", str(out), "--k", "6", *flags, *log,
                          *extra]) == 0
@@ -300,3 +310,59 @@ def test_train_profile_dir_writes_a_trace(fold_dir, tmp_path):
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("cholesky" in n for n in names), sorted(names)[:20]
+
+
+@pytest.fixture(scope="module")
+def fuse_dirs(tmp_path_factory):
+    """Three modalities of widths 6, 4 and 8 with continuous tables (no
+    tied scores, so both packages rank the same items)."""
+    rng = np.random.default_rng(31)
+    dirs = []
+    for k in (6, 4, 8):
+        mdir = tmp_path_factory.mktemp(f"torch_cli_fuse{k}")
+        write_dat(str(mdir / "final-U.dat"),
+                  rng.normal(size=(60, k)).astype(np.float32))
+        write_dat(str(mdir / "final-V.dat"),
+                  rng.normal(size=(50, k)).astype(np.float32))
+        dirs.append(str(mdir))
+    return dirs
+
+
+@pytest.mark.parametrize("flags", [["average"], ["rank"],
+                                   ["rank", "--p", "0.3"], ["error"],
+                                   ["rank", "--p-sweep"]],
+                         ids=["average", "rank", "rank-p0.3", "error",
+                              "p-sweep"])
+def test_fuse_lines_equal_jax(fold_dir, fuse_dirs, capsys, flags):
+    """``fuse`` prints the JAX CLI's lines byte for byte: one
+    ``strategy-scenario`` line per scenario, or nine ``rank-pX-scenario``
+    lines per scenario with --p-sweep."""
+    args = ["fuse", "--strategy", *flags, "-d", str(fold_dir), "-m",
+            *fuse_dirs, "-sl", "im", "om"]
+    assert jax_cli.main(args) == 0
+    want = capsys.readouterr().out
+    assert torch_cli.main(args + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert got == want
+    lines = got.splitlines()
+    assert len(lines) == (18 if "--p-sweep" in flags else 2)
+    assert lines[0].startswith("rank-p0.1-im," if "--p-sweep" in flags
+                               else f"{flags[0]}-im,")
+
+
+@pytest.mark.parametrize("strategy", ["svm", "bpr"])
+def test_fuse_learned_weights_lines(fold_dir, fuse_dirs, capsys, strategy):
+    """The learned weightings draw their own triplets: their lines are
+    well-formed, accuracies in [0, 1] and rising with the cut-off."""
+    assert torch_cli.main(["fuse", "--strategy", strategy, "-d",
+                           str(fold_dir), "-m", *fuse_dirs, "-sl", "im", "om",
+                           "--n-samples", "4000", "--seed", "3", "--device",
+                           "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split(",")[0] for ln in lines] == [f"{strategy}-im",
+                                                  f"{strategy}-om"]
+    for ln in lines:
+        acc = np.array(ln.split(",")[1:], float)
+        assert acc.shape == (6,) and np.all((acc >= 0) & (acc <= 1))
+        assert np.all(np.diff(acc) >= 0)
+        assert all(len(c.split(".")[1]) == 6 for c in ln.split(",")[1:])

@@ -17,11 +17,13 @@ from topk_rec_torch import config as tcfg
 from topk_rec_torch.data import dataset as tds
 from topk_rec_torch.data import io as tio
 from topk_rec_torch.native import io_native as tnat
+from topk_rec_torch.tools import text as ttext
 from topk_rec_torch.utils import logging as tlog
 from topk_rec_torch.utils import statelog as tstate
 from topk_rec_tpu import config as jcfg
 from topk_rec_tpu.data import dataset as jds
 from topk_rec_tpu.data import io as jio
+from topk_rec_tpu.tools import text as jtext
 from topk_rec_tpu.utils import logging as jlog
 from topk_rec_tpu.utils import statelog as jstate
 
@@ -202,3 +204,85 @@ def test_parser_reports_native_when_built(monkeypatch):
     assert tio.parser() == want
     monkeypatch.setattr(tio, "_native_lib", lambda: None)
     assert tio.parser() == "python"
+
+
+def test_data_api_lists_the_jax_names():
+    import topk_rec_torch.data as tdata
+    import topk_rec_tpu.data as jdata
+
+    assert set(jdata.__all__) <= set(tdata.__all__)
+    assert set(tdata.__all__) - set(jdata.__all__) == {"parser", "read_mfp",
+                                                       "write_mfp"}
+    for name in tdata.__all__:
+        assert callable(getattr(tdata, name)), name
+
+
+@pytest.mark.parametrize("args", [(40, 30, 500, 0), (70, 25, 900, 3, 4, 0.2)])
+def test_synthetic_interactions_equal(args):
+    got, want = tds.synthetic_interactions(*args), \
+        jds.synthetic_interactions(*args)
+    assert (got.n_users, got.n_items) == (want.n_users, want.n_items)
+    for name in ("pos_u", "pos_i", "seen_u", "seen_i"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype and np.array_equal(g, w), name
+    for key in ("u_lat", "i_lat"):
+        assert np.array_equal(got._cache[key], want._cache[key]), key
+    dense = got.dense_matrix()
+    assert dense.dtype == np.float32 and dense.sum() == got.nnz
+    assert np.array_equal(dense, want.dense_matrix())
+    assert np.array_equal(got.dense_matrix(np.int8),
+                          want.dense_matrix(np.int8))
+
+
+def test_synthetic_features_equal():
+    got_i, want_i = tds.synthetic_interactions(30, 20, 200, seed=5), \
+        jds.synthetic_interactions(30, 20, 200, seed=5)
+    for d, seed in ((7, 0), (12, 4)):
+        g = tds.synthetic_features(got_i, d, seed=seed)
+        w = jds.synthetic_features(want_i, d, seed=seed)
+        assert g.dtype == np.float32 and np.array_equal(g, w)
+    # without the generating latents: the co-occurrence mix
+    plain = [m.Interactions(30, 20, want_i.pos_u, want_i.pos_i)
+             for m in (tds, jds)]
+    g = tds.synthetic_features(plain[0], 9, seed=2, noise=0.1)
+    w = jds.synthetic_features(plain[1], 9, seed=2, noise=0.1)
+    assert g.dtype == np.float32 and np.array_equal(g, w)
+
+
+def test_inverse_id_map_and_mfp_equal(tmp_path):
+    uid, _, _ = write_fold(str(tmp_path), 4)
+    assert tio.load_inverse_id_map(uid) == jio.load_inverse_id_map(uid)
+    inv = tio.load_inverse_id_map(uid)
+    assert {v: k for k, v in inv.items()} == tio.load_id_map(uid)
+    rng = np.random.default_rng(6)
+    deg = rng.integers(0, 6, size=9)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    flat = rng.integers(0, 1000, size=int(indptr[-1])).astype(np.int32)
+    ours, theirs = tmp_path / "a.mfp", tmp_path / "b.mfp"
+    tio.write_mfp(str(ours), indptr, flat)
+    jio.write_mfp(str(theirs), indptr, flat)
+    assert ours.read_bytes() == theirs.read_bytes()
+    with open(ours, "a") as f:
+        f.write("\n")  # blank lines are skipped
+    for g, w, a in zip(tio.read_mfp(str(ours)), jio.read_mfp(str(theirs)),
+                       (indptr, flat)):
+        assert g.dtype == np.int32 and np.array_equal(g, w)
+        assert np.array_equal(g, a)
+
+
+def test_tfidf_features_equal():
+    docs = ["The cat sat on the mat.", "the dog chased THE cat", "",
+            "quantum chromodynamics: lattice gauge theory, gauge fields",
+            "cat cat cat dog"]
+    for vocab_size, lowercase in ((8, True), (3, True), (50, False)):
+        g, gv = ttext.tfidf_features(docs, vocab_size, lowercase)
+        w, wv = jtext.tfidf_features(docs, vocab_size, lowercase)
+        assert gv == wv
+        assert g.dtype == np.float32 and np.array_equal(g, w)
+
+
+def test_lda_topics_equal():
+    counts = np.random.default_rng(1).integers(0, 4, size=(15, 12))
+    for g, w in zip(ttext.lda_topics(counts, n_topics=3, max_iter=4, seed=2),
+                    jtext.lda_topics(counts, n_topics=3, max_iter=4, seed=2)):
+        assert g.dtype == np.float32 and np.array_equal(g, w)

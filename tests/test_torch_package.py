@@ -15,7 +15,9 @@ from topk_rec_torch import cli as torch_cli
 from topk_rec_torch.data import Interactions as PortInteractions
 from topk_rec_torch.device import resolve_device
 from topk_rec_torch.eval import device as tdev
-from topk_rec_torch.models import BPR, CER, VBPR, WMF
+from topk_rec_torch.experiment import ExperimentSpec, run_experiment
+from topk_rec_torch.fusion import ModalityScores
+from topk_rec_torch.models import BPR, CER, DPM, VBPR, WMF, MLPEncoder
 from topk_rec_torch.ops import topk_floor as tfl
 from topk_rec_torch.ops import topk_fused as tf
 from topk_rec_torch.ops import topk_hybrid as th
@@ -46,19 +48,23 @@ def _port_modules():
 
 
 def test_imports_without_jax():
-    """The port imports with jax and the JAX package blocked: any import of
-    either raises."""
+    """The port imports with jax, the JAX package and scikit-learn blocked
+    (the card's machine has no scikit-learn): any import of them raises."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['topk_rec_tpu'] = None\n"
+        "sys.modules['sklearn'] = None\n"
         f"for name in {_port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
         "import topk_rec_torch\n"
         "topk_rec_torch.BPR, topk_rec_torch.TripletSampler\n"
         "topk_rec_torch.VBPR, topk_rec_torch.WMF, topk_rec_torch.CER\n"
+        "topk_rec_torch.DPM, topk_rec_torch.MLPEncoder\n"
+        "topk_rec_torch.SDAEEncoder, topk_rec_torch.ModalityScores\n"
+        "topk_rec_torch.evaluate_fused, topk_rec_torch.run_experiment\n"
         "loaded = [m for m in sys.modules if m.startswith(('jax', "
-        "'topk_rec_tpu')) and sys.modules[m] is not None]\n"
+        "'topk_rec_tpu', 'sklearn')) and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
         "print('ok')\n"
     )
@@ -110,6 +116,10 @@ def test_lazy_package_attributes():
     assert topk_rec_torch.VBPR is VBPR
     assert topk_rec_torch.WMF is WMF
     assert topk_rec_torch.CER is CER
+    assert topk_rec_torch.DPM is DPM
+    assert topk_rec_torch.MLPEncoder is MLPEncoder
+    assert topk_rec_torch.ModalityScores is ModalityScores
+    assert topk_rec_torch.run_experiment is run_experiment
     assert topk_rec_torch.TripletSampler is TripletSampler
     with pytest.raises(AttributeError):
         topk_rec_torch.no_such_name
@@ -131,6 +141,22 @@ def test_cuda_without_card_raises(monkeypatch, capsys):
         torch_cli.main(["train", "--model", "bpr", "-d", "x", "-o", "y"])
     assert ei.value.code == 2
     assert "CUDA is not available" in capsys.readouterr().err
+    for make in (lambda: DPM(k=4, d=8), lambda: MLPEncoder(k=4, d=8),
+                 lambda: ModalityScores([(np.zeros((2, 3), np.float32),
+                                          np.zeros((4, 3), np.float32))])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    with pytest.raises(SystemExit) as ei:
+        torch_cli.main(["fuse", "--strategy", "average", "-d", "x", "-m",
+                        "y"])
+    assert ei.value.code == 2
+    assert "CUDA is not available" in capsys.readouterr().err
+    spec = ExperimentSpec("x", "y", None, None, {"cf": None}, folds=())
+    assert spec.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_experiment(ExperimentSpec(
+            str(os.path.join(ROOT, "no_such_dir")), "y", None, None,
+            {"cf": None}, folds=(0,)))
     assert resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
@@ -175,8 +201,8 @@ def test_cpu_training_stays_on_the_cpu(small_inter):
 
 
 def test_cpu_als_and_content_training_stays_on_the_cpu(small_inter):
-    """WMF, CER and VBPR on the CPU keep their tables there and hand back
-    host arrays."""
+    """WMF, CER, VBPR and DPM on the CPU keep their tables (and DPM its
+    encoder) there and hand back host arrays."""
     feat = np.random.default_rng(1).normal(
         size=(small_inter.n_items, 12)).astype(np.float32)
     for model in (WMF(k=4, block_size=64, device="cpu"),
@@ -193,3 +219,12 @@ def test_cpu_als_and_content_training_stays_on_the_cpu(small_inter):
         for t in model.tables.buffers():
             assert t.device.type == "cpu"
         assert type(model.fie) is np.ndarray and np.isfinite(model.fie).all()
+    dpm = DPM(k=4, d=12, block_size=64, device="cpu")
+    dpm.set_interactions(_port(small_inter))
+    dpm.set_features(feat)
+    dpm.train(MLPEncoder(k=4, d=12, hidden_layers=(8,), device="cpu"),
+              max_iter=2, verbose=False)
+    for t in [*dpm.tables.buffers(), *dpm.encoder.parameters(),
+              *dpm.encoder.buffers()]:
+        assert t.device.type == "cpu"
+    assert type(dpm.fie) is np.ndarray and np.isfinite(dpm.fie).all()

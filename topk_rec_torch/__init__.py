@@ -23,7 +23,12 @@ cores). Its sixth moves P1 onto that loop too, so the kernels share one,
 and repairs three faults: ``TopKServer``'s kernel copies of U and V now
 follow the tables, the checkpoint manager refuses the JAX package's orbax
 steps instead of passing over them, and the sampler and ALS entry points
-default to the card as every other entry point does.
+default to the card as every other entry point does. Its seventh completes
+the single-device port: DPM with its MLP and SDAE encoders (``train --model
+dpm``), late fusion (``fuse``, ``fusion/``), ``topk_unseen_scorer``, the
+experiment grid, the text tools and the rest of the data API. They run no
+kernel of their own; their tables and fused scores are checked through K1.
+Only the mesh is not ported.
 
 Layout:
   config.py   the entry points' dataclass configuration
@@ -37,17 +42,23 @@ Layout:
               topk_floor (P1, K1's floor); and the training ops sampling
               (triplets), sparse_update (sparse RMSProp) and als (batched
               weighted-ALS half-sweeps)
-  models/     Recommender, BPR, VBPR, WMF and CER (counterpart of
-              topk_rec_tpu/models)
+  models/     Recommender, BPR, VBPR, WMF, CER, DPM and its MLP and SDAE
+              encoders (counterpart of topk_rec_tpu/models)
+  fusion/     late fusion: ModalityScores, the five weightings,
+              evaluate_fused (counterpart of topk_rec_tpu/fusion)
+  experiment.py  the fold x modality grid (counterpart of
+              topk_rec_tpu/experiment.py)
+  tools/      tf-idf features and LDA topics (counterpart of
+              topk_rec_tpu/tools)
   checkpoint.py  npz checkpoints (counterpart of topk_rec_tpu/checkpoint.py)
   profiling.py   torch.profiler traces (counterpart of
               topk_rec_tpu/utils/profiling.py)
   eval/       on-device evaluation (counterpart of topk_rec_tpu/eval)
   serving.py  TopKServer (counterpart of topk_rec_tpu/serving.py)
-  interop.py  JAX-package parameters and BPR/VBPR state <-> the port's
-              tensors
-  cli.py      ``train`` / ``evaluate`` / ``recommend`` (counterpart of
-              topk_rec_tpu/cli.py)
+  interop.py  JAX-package parameters and BPR/VBPR/DPM state <-> the
+              port's tensors
+  cli.py      ``train`` / ``evaluate`` / ``fuse`` / ``recommend``
+              (counterpart of topk_rec_tpu/cli.py)
 
 The attribute map below is lazy, as in ``topk_rec_tpu/__init__.py:24-43``:
 ``import topk_rec_torch`` loads no kernel and no torch module beyond itself.
@@ -68,6 +79,13 @@ _LAZY = {
     "VBPR": "topk_rec_torch.models.vbpr",
     "WMF": "topk_rec_torch.models.wmf",
     "CER": "topk_rec_torch.models.cer",
+    "DPM": "topk_rec_torch.models.dpm",
+    "MLPEncoder": "topk_rec_torch.models.encoders",
+    "SDAEEncoder": "topk_rec_torch.models.encoders",
+    "ModalityScores": "topk_rec_torch.fusion.fusion",
+    "evaluate_fused": "topk_rec_torch.fusion.fusion",
+    "ExperimentSpec": "topk_rec_torch.experiment",
+    "run_experiment": "topk_rec_torch.experiment",
     "TripletSampler": "topk_rec_torch.ops.sampling",
     "CheckpointManager": "topk_rec_torch.checkpoint",
     "from_jax_params": "topk_rec_torch.interop",

@@ -1,10 +1,10 @@
-"""Command-line interface of the port: ``train``, ``evaluate`` and
-``recommend``.
+"""Command-line interface of the port: ``train``, ``evaluate``, ``fuse``
+and ``recommend``.
 
-Counterpart of ``topk_rec_tpu/cli.py:66-405, 494-675``, with the same
-flags plus ``--device`` (default ``cuda``; there is no silent fallback to
-the CPU). ``train`` takes ``--model bpr|vbpr|wmf|cer``; ``dpm`` and
-``--mesh`` are not ported yet and exit with code 2. The backends are named for this
+Counterpart of ``topk_rec_tpu/cli.py``, with the same flags plus
+``--device`` (default ``cuda``; there is no silent fallback to the CPU).
+``train`` takes ``--model bpr|vbpr|wmf|cer|dpm``; ``--mesh`` is not ported
+yet and exits with code 2. The backends are named for this
 package: ``--engine {torch,kernel}`` stands for JAX's ``{xla,pallas}`` and
 ``--method {exact,approx,kernel,hybrid}`` for
 ``{exact,approx,pallas,hybrid}``; both default to ``kernel``, the fused
@@ -16,6 +16,10 @@ Usage:
   python -m topk_rec_torch.cli train --model bpr -d data -o embed/bpr
   python -m topk_rec_torch.cli train --model cer -d data -o embed/cer \
       --content meta.pkl --d 20000 --log-dir embed/cer
+  python -m topk_rec_torch.cli train --model dpm -d data -o embed/dpm \
+      --content meta.pkl --d 20000 --encoder sdae --max-iter 20
+  python -m topk_rec_torch.cli fuse --strategy rank -d data \
+      -m embed/cer embed/dpm -sl im om
   python -m topk_rec_torch.cli evaluate -d data -m embed/bpr -f 0 -sl im om
   python -m topk_rec_torch.cli recommend -d data -m embed/bpr -k 30 u1 u2
   python -m topk_rec_torch.cli recommend ... --method hybrid u1 u2
@@ -44,8 +48,9 @@ _EC = EvalConfig()
 _MC = ModelConfig()
 _TC = TrainConfig()
 MODELS = ("bpr", "vbpr", "wmf", "cer", "dpm")  # the JAX CLI's choices
-PORTED_MODELS = ("bpr", "vbpr", "wmf", "cer")
-CONTENT_MODELS = ("vbpr", "cer")
+PORTED_MODELS = ("bpr", "vbpr", "wmf", "cer", "dpm")
+CONTENT_MODELS = ("vbpr", "cer", "dpm")
+ENCODERS = ("mlp", "sdae")
 
 
 def _load_fold(data_dir: str, fold: int):
@@ -117,7 +122,7 @@ def _device(name: str):
 
 def build_model(mc: ModelConfig, device):
     """The configured model on ``device`` (cli.py:182-215)."""
-    from .models import BPR, CER, VBPR, WMF
+    from .models import BPR, CER, DPM, VBPR, WMF
 
     if mc.model == "bpr":
         return BPR(
@@ -139,6 +144,9 @@ def build_model(mc: ModelConfig, device):
     if mc.model == "cer":
         return CER(k=mc.k, d=mc.d, lu=mc.als_lu, lv=mc.als_lv, le=mc.als_le,
                    a=mc.als_a, b=mc.als_b, seed=mc.seed, device=device)
+    if mc.model == "dpm":
+        return DPM(k=mc.k, d=mc.d, lu=mc.als_lu, lv=mc.als_lv, le=mc.als_le,
+                   a=mc.als_a, b=mc.als_b, seed=mc.seed, device=device)
     raise SystemExit(f"unknown model {mc.model!r}")
 
 
@@ -146,7 +154,8 @@ def train_from_config(cfg: TrainConfig, device="cuda"):
     """Train the configured model on ``device``, export its files into
     ``cfg.out_dir`` (``final-*.dat``, and ``checkpoint.npz`` or
     ``final-E.dat`` where the model has them) and return the model
-    (cli.py:266-361)."""
+    (cli.py:266-361). DPM's encoder is ``cfg.encoder`` with the hidden
+    widths ``cfg.encoder_hidden``."""
     from .checkpoint import OrbaxCheckpointError
     from .profiling import profile_trace
 
@@ -186,6 +195,18 @@ def train_from_config(cfg: TrainConfig, device="cuda"):
                 )
             except OrbaxCheckpointError as e:
                 raise _fail(str(e))
+        elif mc.model == "dpm":
+            from .models import MLPEncoder, SDAEEncoder
+
+            enc_cls = {"mlp": MLPEncoder, "sdae": SDAEEncoder}.get(cfg.encoder)
+            if enc_cls is None:
+                raise SystemExit(f"unknown encoder {cfg.encoder!r}")
+            enc = enc_cls(mc.k, model.d,
+                          hidden_layers=tuple(cfg.encoder_hidden),
+                          seed=mc.seed, device=model.device)
+            model.train(enc, max_iter=cfg.max_iter, model_path=cfg.warm_start,
+                        log_dir=cfg.log_dir, save_lag=cfg.save_lag,
+                        save_dir=save_dir)
         else:
             extra = {}
             if mc.model == "wmf" and cfg.theta_init:
@@ -226,6 +247,8 @@ def cmd_train(args) -> int:
         max_iter=args.max_iter,
         tol=args.tol,
         warm_start=args.warm_start,
+        encoder=args.encoder,
+        encoder_hidden=list(args.encoder_hidden),
         log_dir=args.log_dir,
         profile_dir=args.profile_dir,
         save_lag=args.save_lag,
@@ -255,6 +278,77 @@ def cmd_evaluate(args) -> int:
         )
         res = ev.evaluate(umat, vmat, bmat, cand_ids, likes)
         print(scenario + "".join(",%.6f" % a for a in res.accuracy))
+    return 0
+
+
+FUSE_STRATEGIES = ("average", "rank", "error", "svm", "bpr")
+
+
+def _fuse_weights(args, modalities, inter):
+    """The strategy's weights: [F], or [n_users, F] for ``error``
+    (cli.py:428-477)."""
+    from .fusion import (
+        average_weights,
+        bpr_fusion_weights,
+        error_weights,
+        rank_geometric_weights,
+        svm_fusion_weights,
+    )
+
+    F = modalities.n_feats
+    if args.strategy == "average":
+        return average_weights(F)
+    if args.strategy == "rank":
+        return rank_geometric_weights(F, args.p)
+    if args.strategy == "error":
+        return error_weights(modalities, inter, np.arange(inter.n_items))
+    if args.strategy == "svm":
+        return svm_fusion_weights(
+            modalities, inter, seed=args.seed,
+            n_samples=args.n_samples if args.n_samples is not None
+            else 100_000)
+    return bpr_fusion_weights(
+        modalities, inter, seed=args.seed,
+        n_samples=args.n_samples if args.n_samples is not None
+        else 10_000_000)
+
+
+def cmd_fuse(args) -> int:
+    """Late fusion of several model directories: one
+    ``strategy-scenario,acc...`` line per scenario, or with ``--p-sweep``
+    nine ``rank-pX-scenario`` lines, p = 0.1 .. 0.9 (cli.py:408-491)."""
+    from .eval.device import candidate_words
+    from .fusion import ModalityScores, evaluate_fused, rank_geometric_weights
+
+    device = _device(args.device)
+    inter, uids, iids = _load_fold(args.data, args.fold)
+    modalities = ModalityScores(
+        [(_read_model_mat(m, "final-U.dat", uids),
+          _read_model_mat(m, "final-V.dat", iids)) for m in args.models],
+        device=device)
+    scen = {}
+    for scenario in args.scenarios:
+        cand_ids, likes = _scenario_inputs(args.data, args.fold, scenario,
+                                           uids, iids)
+        # packed once per scenario, for every weighting evaluated on it
+        scen[scenario] = (cand_ids, likes,
+                          candidate_words(inter.seen_bitmap, cand_ids, device))
+
+    def report(name, weights):
+        for scenario, (cand_ids, likes, packed) in scen.items():
+            res = evaluate_fused(modalities, weights, inter.seen_bitmap,
+                                 cand_ids, likes, step=args.step,
+                                 total=args.total, packed_seen=packed)
+            print(f"{name}-{scenario}"
+                  + "".join(",%.6f" % a for a in res.accuracy))
+
+    if args.strategy == "rank" and args.p_sweep:
+        # the reference's pfusion sweeps p over 0.1 .. 0.9 (pfusion.py:113)
+        for p_val in [round(0.1 * i, 1) for i in range(1, 10)]:
+            report(f"rank-p{p_val}",
+                   rank_geometric_weights(modalities.n_feats, p_val))
+        return 0
+    report(args.strategy, _fuse_weights(args, modalities, inter))
     return 0
 
 
@@ -317,21 +411,21 @@ def build_parser() -> argparse.ArgumentParser:
     pt = sub.add_parser("train", help="train a model and export embeddings")
     pt.add_argument("--model", dest="model_name", required=True,
                     choices=MODELS,
-                    help="bpr, vbpr, wmf or cer; dpm is not yet ported")
+                    help="bpr, vbpr, wmf, cer or dpm")
     pt.add_argument("-d", "--data", required=True)
     pt.add_argument("-o", "--out", required=True)
     pt.add_argument("-f", "--fold", type=int, default=0)
     pt.add_argument("--content", default=None,
-                    help="content pickle filename (vbpr, cer)")
+                    help="content pickle filename (vbpr, cer, dpm)")
     pt.add_argument("--k", type=int, default=_MC.k)
     pt.add_argument("--d", type=int, default=_MC.d,
-                    help="content feature width (vbpr, cer)")
+                    help="content feature width (vbpr, cer, dpm)")
     pt.add_argument("--epochs", type=int, default=_TC.epochs)
     pt.add_argument("--batch-size", type=int, default=_TC.batch_size)
     pt.add_argument("--epoch-sample-limit", type=int,
                     default=_TC.epoch_sample_limit)
     pt.add_argument("--max-iter", type=int, default=_TC.max_iter,
-                    help="ALS iterations (wmf, cer)")
+                    help="ALS iterations (wmf, cer, dpm)")
     pt.add_argument("--tol", type=float, default=_TC.tol,
                     help="ALS stop: relative loss change (wmf, cer)")
     pt.add_argument("--lr", type=float, default=_MC.lr)
@@ -355,7 +449,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "the sorted keys when the bitmap would exceed 1 GiB)")
     pt.add_argument("--warm-start", default=_TC.warm_start)
     pt.add_argument("--log-dir", default=_TC.log_dir,
-                    help="write state.log/settings.txt here (wmf, cer)")
+                    help="write state.log/settings.txt here (wmf, cer, "
+                    "dpm)")
     pt.add_argument("--profile-dir", default=_TC.profile_dir,
                     help="write a torch.profiler trace of training here")
     pt.add_argument("--ckpt-dir", default=_TC.ckpt_dir,
@@ -371,11 +466,36 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--save-lag", type=int, default=_TC.save_lag,
                     help="dump %%04d-U/V.dat into -o every N ALS iterations "
                     "(reference cr --save_lag)")
+    pt.add_argument("--encoder", default=_TC.encoder, choices=ENCODERS,
+                    help="DPM content encoder (sdae: CDL-style, with "
+                    "layer-wise denoising pretraining)")
+    pt.add_argument("--encoder-hidden", type=int, nargs="+",
+                    default=_TC.encoder_hidden,
+                    help="DPM encoder hidden widths")
     pt.add_argument("--mesh", default=None,
                     help="distributed training: not yet ported")
     pt.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
     pt.set_defaults(func=cmd_train)
+
+    pf = sub.add_parser("fuse", help="late-fuse several model dirs")
+    pf.add_argument("--strategy", required=True, choices=FUSE_STRATEGIES)
+    pf.add_argument("-d", "--data", required=True)
+    pf.add_argument("-m", "--models", nargs="+", required=True)
+    pf.add_argument("-f", "--fold", type=int, default=0)
+    pf.add_argument("-s", "--step", type=int, default=5)
+    pf.add_argument("-t", "--total", type=int, default=30)
+    pf.add_argument("-sl", "--scenarios", nargs="+", default=["im", "om"])
+    pf.add_argument("--p", type=float, default=0.5, help="rank-fusion p")
+    pf.add_argument("--p-sweep", action="store_true",
+                    help="rank strategy: evaluate p in {0.1..0.9}, one CSV "
+                    "line each (reference pfusion.py:113)")
+    # None: svm 100k, bpr the reference's 10M (ranking_fusion.py:44)
+    pf.add_argument("--n-samples", type=int, default=None)
+    pf.add_argument("--seed", type=int, default=0)
+    pf.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    pf.set_defaults(func=cmd_fuse)
 
     pr = sub.add_parser(
         "recommend", help="top-k unseen items for given users (serving)"

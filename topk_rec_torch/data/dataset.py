@@ -138,3 +138,74 @@ class Interactions:
     def item_like_counts(self) -> np.ndarray:
         """Per-item positive counts."""
         return np.bincount(self.pos_i, minlength=self.n_items).astype(np.int32)
+
+    def dense_matrix(self, dtype=np.float32) -> np.ndarray:
+        """Dense 0/1 positive matrix (tests / tiny data only)."""
+        m = np.zeros((self.n_users, self.n_items), dtype=dtype)
+        m[self.pos_u, self.pos_i] = 1
+        return m
+
+
+def synthetic_interactions(
+    n_users: int,
+    n_items: int,
+    n_pos: int,
+    seed: int = 0,
+    latent_dim: int = 8,
+    noise: float = 0.5,
+) -> Interactions:
+    """Implicit feedback with low-rank latent structure: users and items
+    get latent vectors, and positives are drawn by a Gumbel-max over the
+    noisy affinities, so factorization models learn a signal that top-k
+    evaluation detects. The same NumPy draws as the JAX package's, so one
+    seed gives the same arrays; the generating latents stay in
+    ``_cache["u_lat"]`` and ``_cache["i_lat"]`` for
+    :func:`synthetic_features`."""
+    rng = np.random.default_rng(seed)
+    u_lat = rng.normal(size=(n_users, latent_dim))
+    i_lat = rng.normal(size=(n_items, latent_dim))
+    pos_set = set()
+    pos_u = np.empty(n_pos, dtype=np.int32)
+    pos_i = np.empty(n_pos, dtype=np.int32)
+    count = 0
+    while count < n_pos:
+        # capped draw batch: the [batch, n_items] affinity is the memory hog
+        batch = min(65536, max(1024, (n_pos - count) * 2))
+        us = rng.integers(0, n_users, size=batch)
+        aff = u_lat[us] @ i_lat.T + noise * rng.normal(size=(batch, n_items))
+        its = np.argmax(aff + rng.gumbel(size=aff.shape), axis=1)
+        for u, i in zip(us, its):
+            key = (int(u), int(i))
+            if key not in pos_set:
+                pos_set.add(key)
+                pos_u[count] = u
+                pos_i[count] = i
+                count += 1
+                if count == n_pos:
+                    break
+    inter = Interactions(n_users, n_items, pos_u, pos_i)
+    inter._cache["u_lat"] = u_lat
+    inter._cache["i_lat"] = i_lat
+    return inter
+
+
+def synthetic_features(
+    inter: Interactions, d: int, seed: int = 0, noise: float = 0.3
+) -> np.ndarray:
+    """Item content features that predict preferences: a random linear
+    embedding of the generating item latents plus noise when ``inter``
+    came from :func:`synthetic_interactions` (so content models generalize
+    to cold items), else a smoothed co-occurrence mix of random rows."""
+    rng = np.random.default_rng(seed + 1)
+    i_lat = inter._cache.get("i_lat")
+    if i_lat is not None:
+        proj = rng.normal(size=(i_lat.shape[1], d))
+        feat = i_lat @ proj + noise * rng.normal(size=(inter.n_items, d))
+        return feat.astype(np.float32)
+    base = rng.normal(size=(inter.n_items, d)).astype(np.float32)
+    co = inter.dense_matrix()
+    item_profile = co.T @ co  # [n_items, n_items]
+    norm = item_profile.sum(axis=1, keepdims=True)
+    norm[norm == 0] = 1
+    mixed = (item_profile / norm) @ base
+    return (base + mixed).astype(np.float32)

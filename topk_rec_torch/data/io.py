@@ -12,6 +12,7 @@ reference's:
 * ``final-U/V/B/E.dat``: row-major space-separated ``%f`` text matrices,
   row order = id-file order, written byte for byte as the reference's
   ``evaluate.py`` reads them.
+* ``.mfp``: the reference solver's sparse rows, ``count id1 id2 ...``.
 
 The C++ parser (``csrc/io_native.cpp``, bound in ``native/io_native.py``)
 is built at first use; when it cannot be built or loaded, the NumPy
@@ -36,6 +37,15 @@ def load_id_map(path: str) -> Dict[str, int]:
             tid = line.strip()
             ids[tid] = len(ids)
     return ids
+
+
+def load_inverse_id_map(path: str) -> Dict[int, str]:
+    """Map dense index -> raw id string (line order)."""
+    ivt: Dict[int, str] = {}
+    with open(path, "r") as f:
+        for line in f:
+            ivt[len(ivt)] = line.strip()
+    return ivt
 
 
 def parse_ratings(
@@ -165,6 +175,38 @@ def load_features(
         if src is not None:
             out[idx, :] = feat[src, :]
     return out
+
+
+def read_mfp(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Read the legacy sparse ``.mfp`` format into CSR arrays: each line is
+    ``count id1 id2 ...`` (the reference solver's user-major and
+    item-major inputs). Returns (indptr [n_rows+1], flat ids [nnz]) int32."""
+    indptr = [0]
+    flat: List[int] = []
+    with open(path, "r") as f:
+        for line in f:
+            terms = line.split()
+            if not terms:
+                continue
+            count = int(terms[0])
+            ids = [int(t) for t in terms[1 : 1 + count]]
+            flat.extend(ids)
+            indptr.append(len(flat))
+    return (
+        np.asarray(indptr, dtype=np.int32),
+        np.asarray(flat, dtype=np.int32),
+    )
+
+
+def write_mfp(path: str, indptr: np.ndarray, flat: np.ndarray) -> None:
+    """Write CSR arrays in the legacy ``.mfp`` format."""
+    with open(path, "w") as f:
+        for r in range(len(indptr) - 1):
+            ids = flat[indptr[r]:indptr[r + 1]]
+            f.write(str(len(ids)))
+            for i in ids:
+                f.write(f" {i}")
+            f.write("\n")
 
 
 _NATIVE = None

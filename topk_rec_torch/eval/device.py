@@ -31,7 +31,7 @@ from ..ops.topk_fused import (
     fused_score_topk,
     kernel_table,
     kernel_width,
-    pack_candidate_bitmap,
+    pack_mask,
     topk_stable,
 )
 from .protocol import EvalResult
@@ -143,14 +143,78 @@ def topk_unseen(
     dev = resolve_device(device)
     n_cand = V_cand.shape[0]
     k = min(k, n_cand)
-    packed = pack_candidate_bitmap(seen_bitmap, cand_item_ids)
-    bm_dev = bitmap_tensor(packed, dev)
+    bm_dev = candidate_words(seen_bitmap, cand_item_ids, dev)
     return _chunked(
         U, _to_dev(V_cand, dev),
         _to_dev(None if bias is None else np.reshape(bias, -1), dev),
         bm_dev, bm_dev if want_raw_rank else None, n_cand, k, user_chunk,
         use_kernel, dev,
     )
+
+
+def candidate_words(seen_bitmap, cand_item_ids, device="cuda",
+                    user_chunk: int = 8192) -> torch.Tensor:
+    """The seen bitmap re-packed into candidate space on the device: int32
+    words [n_users, ceil(n_cand/32)], bit c of user u = seen bit
+    ``cand_item_ids[c]``. ``seen_bitmap`` is uint32 words [n_users,
+    ceil(n_items/32)], numpy or already on the device. The host's
+    ``pack_candidate_bitmap`` (``ops/topk_fused.py``, the JAX package's
+    way) takes seconds at the MovieLens width and stays as the tests'
+    reference."""
+    dev = resolve_device(device)
+    bits = (seen_bitmap.to(dev) if isinstance(seen_bitmap, torch.Tensor)
+            else bitmap_tensor(seen_bitmap, dev))
+    cand = torch.from_numpy(np.asarray(cand_item_ids, dtype=np.int64)).to(dev)
+    n_items = bits.shape[1] * 32
+    return torch.cat([
+        pack_mask(expand_seen_mask(bits[s:s + user_chunk], n_items)[:, cand])
+        for s in range(0, bits.shape[0], user_chunk)])
+
+
+def topk_unseen_scorer(
+    scorer,
+    n_users: int,
+    n_cand: int,
+    seen_bitmap: np.ndarray,
+    cand_item_ids: np.ndarray,
+    k: int,
+    user_chunk: int = 8192,
+    packed_seen: Optional[np.ndarray] = None,
+    want_rr: bool = True,
+    device="cuda",
+):
+    """Top-k unseen candidates from an arbitrary chunk scorer
+    (eval/device.py:189-236).
+
+    ``scorer(start, stop)`` returns the scores [stop - start, n_cand] of
+    that user range on ``device`` (the fusion engine combines its
+    modalities there, chunk by chunk). The candidate-space seen bitmap is
+    ``packed_seen`` (host words or device int32 words) when given, else
+    packed from ``seen_bitmap`` on the device (:func:`candidate_words`).
+    ``want_rr`` adds the raw-rank counts (a sort per chunk) and returns
+    None for them otherwise. Every chunk is queued before the results are
+    fetched.
+    """
+    dev = resolve_device(device)
+    k = min(k, n_cand)
+    if packed_seen is None:
+        bm_dev = candidate_words(seen_bitmap, cand_item_ids, dev)
+    elif isinstance(packed_seen, torch.Tensor):
+        bm_dev = packed_seen.to(dev)
+    else:
+        bm_dev = bitmap_tensor(packed_seen, dev)
+    vals, idxs, sas = [], [], []
+    for start in range(0, n_users, user_chunk):
+        stop = min(start + user_chunk, n_users)
+        scores = scorer(start, stop)
+        v, i = _mask_topk(scores, bm_dev[start:stop], n_cand, k)
+        vals.append(v)
+        idxs.append(i.to(torch.int32))
+        if want_rr:
+            sas.append(_seen_above_from_scores(scores, bm_dev[start:stop], i,
+                                               n_cand))
+    out_sa = torch.cat(sas).cpu().numpy() if want_rr else None
+    return torch.cat(vals).cpu().numpy(), torch.cat(idxs).cpu().numpy(), out_sa
 
 
 def _count_hits(

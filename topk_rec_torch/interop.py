@@ -9,7 +9,10 @@ The JAX package exports a trained model as host NumPy arrays: ``fue``,
 state (tables and RMSProp accumulators) between the two packages, and
 :func:`vbpr_from_jax` / :func:`vbpr_to_jax` a VBPR's. WMF and CER need no
 converter: their state is the host arrays ``fue``, ``fie`` and ``E`` in
-both packages.
+both packages. DPM's is those arrays and its encoder's weights:
+:func:`encoder_from_jax` / :func:`encoder_to_jax` carry an encoder's state
+under the JAX package's keys (``W{i}``, ``b{i}``, ``mW{i}``, ``mb{i}``), and
+:func:`dpm_from_jax` a whole DPM's.
 """
 
 from __future__ import annotations
@@ -98,3 +101,39 @@ def vbpr_from_jax(model, params, ms) -> None:
 
 
 vbpr_to_jax = bpr_to_jax  # VBPRTables has BPRTables' params()/ms()
+
+
+def encoder_from_jax(encoder, jax_encoder_state) -> None:
+    """Load a JAX encoder's weights and RMSProp accumulators into the port's
+    ``MLPEncoder`` or ``SDAEEncoder`` ``encoder``. ``jax_encoder_state`` is
+    the JAX encoder itself or its ``state_dict()`` (numpy arrays)."""
+    state = (jax_encoder_state.state_dict()
+             if hasattr(jax_encoder_state, "state_dict")
+             else jax_encoder_state)
+    encoder.load_state_dict({n: np.asarray(a) for n, a in state.items()})
+
+
+def encoder_to_jax(encoder):
+    """The port's encoder state as the JAX encoder's ``state_dict()``:
+    numpy arrays under ``W{i}``, ``b{i}``, ``mW{i}``, ``mb{i}`` (load them
+    with the JAX encoder's ``load_state_dict``)."""
+    return encoder.state_dict()
+
+
+def dpm_from_jax(model, jax_model) -> None:
+    """Copy a JAX DPM's tables (``fue``, ``fie``) and encoder state into the
+    port's ``DPM`` ``model``. When ``model`` has no encoder yet, an
+    ``MLPEncoder`` with the layer widths of the JAX encoder's weights is
+    made on the model's device (SDAE and MLP share the network)."""
+    from .models.encoders import MLPEncoder
+
+    state = jax_model.encoder.state_dict()
+    if model.encoder is None:
+        n = sum(1 for name in state if name.startswith("W"))
+        hidden = tuple(int(state[f"W{i}"].shape[1]) for i in range(n - 1))
+        model.encoder = MLPEncoder(model.k, model.d, hidden_layers=hidden,
+                                   device=model.device)
+    encoder_from_jax(model.encoder, state)
+    model.fue = np.array(jax_model.fue, dtype=np.float32)
+    model.fie = np.array(jax_model.fie, dtype=np.float32)
+    model.tables = None
