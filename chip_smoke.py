@@ -96,11 +96,30 @@ without the final ``ok`` line):
    fit and its CSV lines. Then the fused evaluation is held to K1:
    ``evaluate_fused`` with average weights against
    ``DeviceEvaluator(use_kernel=True)`` on the concatenated tables
-   [w_f·U_f] and [V_f] (d = 200), within 2/count on zp and zom.
+   [w_f·U_f] and [V_f] (d = 200), within 2/count on zp and zom;
+12. "mesh": ``topk_rec_torch.parallel`` on a 1 x 1 NCCL mesh (a failed
+   NCCL init fails the run) on phase 6's fold and phase 9's features:
+   ``TopKServer(mesh=)`` with ``kernel``, ``hybrid`` and ``exact`` on four
+   256-user batches, its lists equal to the un-meshed server's, and one
+   batch from a sticky lookup capacity of 1 (doubled up to the batch);
+   ``train --model bpr --mesh 1x1`` through the CLI and ``evaluate`` of its
+   tables through K1 above the untrained ones at accuracy@30 (K1's and
+   K2's counts, set to 0 before the meshed serving, must rise); the
+   served batch's device time meshed and un-meshed; one chunk of
+   ``DistributedBPRTrainer`` (``gspmd`` and ``explicit``, batch 256 and
+   8,192, k = 50) and of ``DistributedVBPRTrainer`` (d = 20,000) equal to
+   the local chunk on the same triplets (rtol 2e-4 / atol 1e-5), with ms
+   and launches per step beside the local chunk's;
+   ``DistributedALS.half_sweep`` of each side equal to the local sweep
+   (rtol 1e-4); one data-parallel MLP encoder sweep (d = 20,000 -> 2,000
+   -> 1,000 -> 50, batch 64) equal to the local one;
+   ``distributed_scores_topk`` on 8,192 users; and the host's µs per call
+   of each collective.
 
 The line before the last is the kernels' JSON record (per kernel: its
-launches on the main path, max error against its twin, and ms, plain_ms,
-library_ms, bound_ms and bound_by at its main shape); the last line is
+launches on the main path, phase 12's included, max error against its
+twin, and ms, plain_ms, library_ms, bound_ms and bound_by at its main
+shape); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1651,6 +1670,354 @@ def fuse_path(dev, root, models):
     return fused_score_topk.launches
 
 
+MESH_STEPS = 16  # steps of the one distributed chunk per trainer case
+
+
+def close_max(got, want, rtol):
+    """|got - want| within rtol of want's largest entry."""
+    got, want = (np.asarray(torch.as_tensor(x).detach().cpu())
+                 for x in (got, want))
+    return bool(np.all(np.abs(got - want)
+                       <= rtol * max(1e-30, float(np.abs(want).max()))))
+
+
+def chunk_close(got, want):
+    """The tolerance of tests/test_parallel.py for a training chunk:
+    rtol 2e-4 / atol 1e-5."""
+    return all(torch.allclose(got[n].float(), want[n].float(), rtol=2e-4,
+                              atol=1e-5) for n in want)
+
+
+def collective_share(fn):
+    """(kernels, their device µs, the NCCL kernels' µs) of fn() under
+    torch.profiler: how much of the meshed work is the collectives' own
+    device time."""
+    kernels = profiled_kernels(fn)
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    return (len(kernels),
+            f"{sum(e.time_range.elapsed_us() for e in kernels):.1f}",
+            f"{sum(e.time_range.elapsed_us() for e in nccl):.1f}")
+
+
+def mesh_serving(dev, mesh, fold):
+    """Phase 12a: ``TopKServer(mesh=)`` against the un-meshed server on four
+    256-user batches with ``kernel``, ``hybrid`` and ``exact``, and one
+    batch served from a sticky lookup capacity of 1. The launch counts are
+    set to 0 after the un-meshed server's lists are made, so they count the
+    meshed server's. Returns the meshed server, the un-meshed one and a
+    batch of user ids."""
+    from topk_rec_torch.ops.topk_fused import fused_score_topk
+    from topk_rec_torch.ops.topk_hybrid import count_vs_threshold
+    from topk_rec_torch.serving import TopKServer
+
+    inter, U, V, B = fold
+    local = TopKServer(U, V, B, inter, device=dev)
+    meshed = TopKServer(U, V, B, inter, mesh=mesh)
+    rng = np.random.default_rng(12)
+    batches = [rng.choice(N_USERS, 256, replace=False) for _ in range(4)]
+    methods = ("kernel", "hybrid", "exact")
+    want = {(m, b): local.recommend(users, TOP_K, m)
+            for m in methods for b, users in enumerate(batches)}
+    fused_score_topk.launches = 0
+    count_vs_threshold.launches = 0
+    for (method, b), (wv, wi) in want.items():
+        got = meshed.recommend(batches[b], TOP_K, method)
+        if not (np.array_equal(got[1], wi) and np.array_equal(got[0], wv)):
+            raise AssertionError(f"meshed {method} lists differ from the "
+                                 "un-meshed server's")
+    tried = []
+    ask = meshed.recommend_async
+
+    def logged(*a, **kw):
+        tried.append(meshed._lookup_capacity)
+        return ask(*a, **kw)
+
+    meshed.recommend_async = logged
+    meshed._lookup_capacity = 1
+    got = meshed.recommend(batches[0], TOP_K, "kernel")
+    del meshed.recommend_async
+    if not np.array_equal(got[1], want[("kernel", 0)][1]) or \
+            tried[0] != 1 or meshed._lookup_capacity != 256:
+        raise AssertionError(f"forced overflow: capacities {tried}")
+    # the kernel copies follow their tables (serving.py), the sharded U and
+    # the replicated V alike
+    for srv in (meshed, local):
+        srv.U.mul_(-1.0)
+        srv.V.mul_(0.5)
+    got = meshed.recommend(batches[1], TOP_K, "kernel")
+    flipped = local.recommend(batches[1], TOP_K, "kernel")
+    if not np.array_equal(got[1], flipped[1]) or \
+            np.array_equal(got[1], want[("kernel", 1)][1]):
+        raise AssertionError("the meshed server's kernel tables did not "
+                             "follow U and V")
+    for srv in (meshed, local):
+        srv.U.mul_(-1.0)
+        srv.V.mul_(2.0)
+    phase("mesh_serve", batches=len(batches), users=256,
+          methods="kernel|hybrid|exact", equal_to_unmeshed=True,
+          kernel_tables_follow=True,
+          forced_capacities="|".join(map(str, tried)))
+    return meshed, local, batches[0]
+
+
+def mesh_train_cli(dev, root):
+    """Phase 12b: ``train --model bpr --mesh 1x1`` through the CLI (one
+    epoch of 131,072 samples), then ``evaluate -sl zp`` of its tables and
+    of phase 8's untrained ones through K1: the trained tables must score
+    higher at accuracy@30."""
+    out = os.path.join(root, "bpr_mesh")
+    lines, wall = run_cli(["train", "--model", "bpr", "-d", root, "-o", out,
+                           "--k", str(DIM), "--batch-size", "256", "--lr",
+                           str(TRAIN_LR), "--epochs", "1",
+                           "--epoch-sample-limit", "131072", "--mesh", "1x1",
+                           "--device", str(dev)])
+    epochs = [ln for ln in lines if "(mesh {'dp': 1, 'mp': 1})" in ln]
+    if len(epochs) != 1 or not os.path.exists(os.path.join(out,
+                                                           "final-U.dat")):
+        raise AssertionError(f"train --mesh 1x1 printed {lines}")
+    acc = {}
+    for name in ("bpr_mesh", "bpr0"):
+        ev, _ = run_cli(["evaluate", "-d", root, "-m",
+                         os.path.join(root, name), "-sl", "zp", "--device",
+                         str(dev)])
+        acc[name] = float(ev[0].split(",")[-1])
+    phase("mesh_train_cli", mesh="1x1", samples=131072,
+          loss=EPOCH_RE.search(epochs[0]).group(1), wall_s=f"{wall:.3f}",
+          trained_at_30=acc["bpr_mesh"], untrained_at_30=acc["bpr0"])
+    if not acc["bpr_mesh"] > acc["bpr0"]:
+        raise AssertionError(f"train --mesh 1x1: accuracy@30 {acc}")
+
+
+def mesh_trainers(dev, mesh, inter, feat):
+    """Phase 12c: one chunk of each distributed trainer against the local
+    chunk on the same triplets and state: BPR at k = 50 with ``gspmd`` and
+    ``explicit`` at batch 256 and 8,192, VBPR at d = 20,000; ms per step
+    (CUDA events over a chunk after a warm-up one) and launches per step
+    (torch.profiler), beside the local chunk's."""
+    from topk_rec_torch.models import BPR, VBPR
+    from topk_rec_torch.models import bpr as tbpr
+    from topk_rec_torch.models import vbpr as tvbpr
+    from topk_rec_torch.models.bpr import INIT_STREAM, stream_generator
+    from topk_rec_torch.parallel import (
+        DistributedBPRTrainer,
+        DistributedVBPRTrainer,
+    )
+
+    def rate(run, u, i, j):
+        """(ms per step, launches per step, device µs per step, NCCL µs per
+        step)."""
+        run(u, i, j)  # warm-up
+        torch.cuda.synchronize()
+        _, ms = timed_ms(lambda: run(u, i, j))
+        n, busy, nccl = collective_share(lambda: run(u, i, j))
+        return (f"{ms / MESH_STEPS:.4f}", f"{n / MESH_STEPS:.1f}",
+                f"{float(busy) / MESH_STEPS:.1f}",
+                f"{float(nccl) / MESH_STEPS:.1f}")
+
+    cases = [("bpr", ex, b) for ex in ("gspmd", "explicit")
+             for b in (256, 8192)] + [("vbpr", "gspmd", 256)]
+    for model_name, ex, batch in cases:
+        if model_name == "bpr":
+            model = BPR(k=DIM, lr=TRAIN_LR, device=dev)
+            make = lambda m: DistributedBPRTrainer(  # noqa: E731
+                m, mesh, batch_size=batch, scan_steps=MESH_STEPS, exchange=ex)
+        else:
+            model = VBPR(k=CONTENT_K, d=CONTENT_D, lr=TRAIN_LR,
+                         lambda_b=VBPR_LB, device=dev)
+            make = lambda m: DistributedVBPRTrainer(  # noqa: E731
+                m, mesh, batch_size=batch, scan_steps=MESH_STEPS)
+        model.set_interactions(inter)
+        if model_name == "vbpr":
+            model.set_features(feat)
+        model._init_params(stream_generator(0, INIT_STREAM, dev))
+        # accumulators of 0.01: from zero, RMSProp's first step is
+        # ±3.16·lr whatever the gradient's size, so a gradient near zero
+        # would turn on the order of its sums
+        model.tables.load(ms={n: torch.full_like(t, 0.01) for n, t in
+                              model.tables.ms().items()})
+        params = {n: t.clone() for n, t in model.tables.params().items()}
+        ms0 = {n: t.clone() for n, t in model.tables.ms().items()}
+        trainer = make(model)
+        u, i, j = trainer.sample_chunk(stream_generator(0, 0, dev))
+        loss = trainer.run_chunk(u, i, j)
+        got = trainer.state()
+        local = model.tables
+        local.load(params, ms0)
+        hyper = model.hyper()
+        if model_name == "bpr":
+            def local_run(u, i, j):
+                return tbpr.run_chunk(local, u, i, j, hyper, model.mode)
+        else:
+            fdev = model._feat_device()
+
+            def local_run(u, i, j):
+                return tvbpr.run_chunk(local, fdev, u, i, j, hyper,
+                                       model.mode)
+        want_loss = float(local_run(u, i, j))
+        if not (chunk_close(got[0], local.params())
+                and chunk_close(got[1], local.ms())
+                and abs(loss - want_loss) <= 1e-4 * abs(want_loss)):
+            raise AssertionError(f"{model_name} {ex} batch {batch}: the "
+                                 "distributed chunk differs from the local")
+        mesh_ms, mesh_launch, mesh_us, nccl_us = rate(trainer.run_chunk,
+                                                      u, i, j)
+        local_ms, local_launch, local_us, _ = rate(local_run, u, i, j)
+        phase("mesh_train", model=model_name, exchange=ex, batch=batch,
+              steps=MESH_STEPS, loss=f"{loss:.4f}", equal_to_local=True,
+              ms_per_step=mesh_ms, local_ms_per_step=local_ms,
+              launches_per_step=mesh_launch,
+              local_launches_per_step=local_launch,
+              device_us_per_step=mesh_us, nccl_us_per_step=nccl_us,
+              local_device_us_per_step=local_us)
+        del model, trainer, local
+
+
+def mesh_als_and_encoder(dev, mesh, inter, feat):
+    """Phase 12d: ``DistributedALS.half_sweep`` of each side against the
+    local ``half_sweep`` (rtol 1e-4), and one data-parallel fit sweep of
+    the MLP encoder (d = 20,000 -> 2,000 -> 1,000 -> 50, batch 64) against
+    the local sweep from the same weights and shuffle; times of each."""
+    from topk_rec_torch.models import WMF, MLPEncoder
+    from topk_rec_torch.ops.als import half_sweep
+    from topk_rec_torch.parallel import DistributedALS
+
+    wmf = WMF(k=CONTENT_K, device=dev)
+    wmf.set_interactions(inter)
+    t = wmf._device_tables()
+    dals = DistributedALS(mesh)
+    sides = {"user": (wmf._user_plan, t.U, t.V, wmf._rated_items, wmf.lu),
+             "item": (wmf._item_plan, t.V, t.U, wmf._rated_users, wmf.lv)}
+    for side, (plan, this, other, rated, lam) in sides.items():
+        calls = {}
+        for name, fn in (("mesh", dals.half_sweep), ("local", half_sweep)):
+            calls[name] = lambda fn=fn: fn(plan, this, other, rated, wmf.a,
+                                           wmf.b, lam, as_numpy=False)
+        (got, gfit), (want, wfit) = calls["mesh"](), calls["local"]()
+        if not (close_max(got, want, 1e-4)
+                and abs(float(gfit) - float(wfit)) <= 1e-4 * abs(float(wfit))):
+            raise AssertionError(f"DistributedALS {side} sweep differs")
+        phase("mesh_als", side=side, k=CONTENT_K, equal_to_local=True,
+              ms=f"{cuda_median_ms(calls['mesh'], reps=3, warmup=1):.4f}",
+              local_ms=f"{cuda_median_ms(calls['local'], reps=3, warmup=1):.4f}")
+    Y = t.V.clone()
+    del wmf, t, dals
+
+    local = MLPEncoder(CONTENT_K, CONTENT_D, device=dev)
+    meshed = MLPEncoder(CONTENT_K, CONTENT_D, mesh=mesh)
+    meshed.load_state_dict(local.state_dict())
+    (want, want_ms), (got, got_ms) = (timed_ms(lambda e=e: e.fit(feat, Y))
+                                      for e in (local, meshed))
+    ws, gs = local.state_dict(), meshed.state_dict()
+    if abs(got - want) > 1e-4 * abs(want) or not all(
+            close_max(gs[n], ws[n], 1e-4) for n in ws):
+        raise AssertionError("the data-parallel encoder sweep differs")
+    n, busy, nccl = collective_share(lambda: meshed.fit(feat, Y))
+    phase("mesh_encoder_fit", batch=local.batch_size,
+          widths=f"{CONTENT_D}x2000x1000x{CONTENT_K}", loss=f"{got:.4f}",
+          equal_to_local=True,
+          sweep_ms=f"{got_ms:.4f}", local_sweep_ms=f"{want_ms:.4f}",
+          launches=n, device_us=busy, nccl_us=nccl)
+
+
+def mesh_scores(dev, mesh, fold):
+    """Phase 12e: ``distributed_scores_topk`` on 8,192 users of phase 6's
+    tables against the product and the stable top-k on the card."""
+    from topk_rec_torch.ops.topk_fused import topk_stable
+    from topk_rec_torch.parallel.train_step import distributed_scores_topk
+
+    _, U, V, B = fold
+    U = U[:8192]
+    (vals, idx), ms = timed_ms(
+        lambda: distributed_scores_topk(mesh, U, V, B, TOP_K))
+    Ud, Vd, Bd = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in (U, V, B.reshape(-1)))
+    wv, wi = topk_stable(Ud @ Vd.T + Bd[None, :], TOP_K)
+    if not (np.array_equal(idx, wi.cpu().numpy())
+            and np.allclose(vals, wv.cpu().numpy(), rtol=TOL, atol=TOL)):
+        raise AssertionError("distributed_scores_topk differs")
+    phase("mesh_scores", users=8192, items=N_ITEMS, k=TOP_K,
+          equal_to_plain=True, call_ms=f"{ms:.4f}")
+
+
+def mesh_collectives(mesh):
+    """Phase 12f: host µs per call of each collective the mesh uses, on
+    this 1 x 1 mesh (200 calls after 10, then one synchronize), beside one
+    small elementwise op: what a collective costs the host that dispatches
+    it, apart from its bytes."""
+    import torch.distributed as dist
+
+    from topk_rec_torch.parallel.distributed import all_gather_rows, \
+        all_to_all
+
+    idx = torch.arange(512, device=mesh.device)
+    one = torch.zeros(1, dtype=torch.int32, device=mesh.device)
+    calls = {
+        "all_to_all_512": lambda: all_to_all(idx, mesh.groups["mp"]),
+        "all_gather_1": lambda: all_gather_rows(one, mesh.groups["mp"]),
+        "all_reduce_4b": lambda: dist.all_reduce(one, group=mesh.groups["dp"]),
+        "add_512": lambda: idx + 1,
+    }
+    us = {}
+    for name, fn in calls.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        us[f"{name}_host_us"] = f"{(time.perf_counter() - t0) / 200 * 1e6:.1f}"
+        torch.cuda.synchronize()
+    phase("mesh_collectives", **us)
+
+
+def mesh_path(dev, root, feat):
+    """Phase 12: the mesh on a 1 x 1 NCCL mesh at full width. Returns the K1
+    and K2 launches of its main path (the meshed serving and the evaluate
+    of the mesh-trained tables)."""
+    import torch.distributed as dist
+
+    from topk_rec_torch.cli import _load_fold, _read_model
+    from topk_rec_torch.ops.topk_fused import fused_score_topk
+    from topk_rec_torch.ops.topk_hybrid import count_vs_threshold
+    from topk_rec_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    inter, uids, iids = _load_fold(root, 0)
+    fold = (inter, *_read_model(os.path.join(root, "model"), uids, iids))
+    mesh = make_mesh(dp=1, mp=1, device=dev)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"the mesh runs on {dist.get_backend()}")
+    phase("mesh", shape="1x1", backend="nccl", device=str(mesh.device),
+          load_and_init_s=f"{time.perf_counter() - t0:.2f}")
+    try:
+        meshed, local, users = mesh_serving(dev, mesh, fold)
+        mesh_train_cli(dev, root)
+        k1, k2 = fused_score_topk.launches, count_vs_threshold.launches
+        if k1 <= 0 or k2 <= 0:
+            raise AssertionError(f"the mesh path launched K1 {k1}, K2 {k2} "
+                                 "times")
+        ms = {}
+        for method in ("kernel", "hybrid", "exact"):
+            for name, srv in (("mesh", meshed), ("local", local)):
+                t = cuda_median_ms(
+                    lambda: srv.recommend_async(users, TOP_K, method))
+                ms[f"{method}_{name}_ms"] = f"{t:.4f}"
+        n, busy, nccl = collective_share(
+            lambda: meshed.recommend_async(users, TOP_K, "kernel"))
+        phase("mesh_serve_latency", users=256, **ms, kernel_mesh_launches=n,
+              kernel_mesh_device_us=busy, kernel_mesh_nccl_us=nccl)
+        del meshed, local
+        mesh_trainers(dev, mesh, inter, feat)
+        mesh_als_and_encoder(dev, mesh, inter, feat)
+        mesh_scores(dev, mesh, fold)
+        mesh_collectives(mesh)
+    finally:
+        dist.destroy_process_group()
+    phase("mesh_done", seconds=f"{time.perf_counter() - t0:.2f}",
+          k1_launches=k1, k2_launches=k2)
+    return k1, k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs one card",
@@ -1704,15 +2071,16 @@ def main() -> int:
         d_launches, dpm_dir = dpm_path(dev, root, feat, counts)
         if d_launches <= 0:
             raise AssertionError("the DPM tables never went through K1")
-        del feat
         f_launches = fuse_path(dev, root, [dirs["vbpr"][0], dirs["wmf"][0],
                                            dirs["cer"][0], dpm_dir])
         if f_launches <= 0:
             raise AssertionError("the fusion check never launched K1")
+        m_launches, m_count_launches = mesh_path(dev, root, feat)
+        del feat
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    launches += t_launches + c_launches + d_launches + f_launches
-    count_launches += t_count_launches
+    launches += t_launches + c_launches + d_launches + f_launches + m_launches
+    count_launches += t_count_launches + m_count_launches
 
     print(json.dumps({"kernels": [{
         "name": "topk_fused",

@@ -215,10 +215,12 @@ def test_train_refuses_an_orbax_ckpt_dir(fold_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--model", "bpr", "--mesh", "2x4"], "not yet ported"),
-    (["--model", "cer", "--mesh", "2x4"], "not yet ported"),
+    (["--model", "bpr", "--mesh", "2x4"], "needs 8 ranks"),
+    (["--model", "cer", "--mesh", "2x4"], "needs 8 ranks"),
 ])
 def test_train_unported_exits_2(fold_dir, tmp_path, capsys, extra, message):
+    """A --mesh that the process group cannot hold (2x4 in one process)
+    exits 2 with the reason, before anything is trained or written."""
     with pytest.raises(SystemExit) as ei:
         torch_cli.main(["train", *extra, "-d", str(fold_dir), "-o",
                         str(tmp_path / "out"), "--device", "cpu"])

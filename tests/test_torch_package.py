@@ -93,6 +93,24 @@ def test_no_jax_import_lines():
         assert os.path.exists(os.path.join(PKG, "csrc", name))
 
 
+def test_parallel_exports_the_jax_names():
+    """``topk_rec_torch.parallel`` has the five modules of
+    ``topk_rec_tpu/parallel`` (imported with jax blocked by
+    ``test_imports_without_jax``) and exports every name that package
+    exports."""
+    import topk_rec_torch.parallel as tpar
+
+    mods = [m for m in _port_modules()
+            if m.startswith("topk_rec_torch.parallel.")]
+    assert sorted(m.rsplit(".", 1)[1] for m in mods) == [
+        "als", "distributed", "lookup", "mesh", "train_step"]
+    for name in ("make_mesh", "shard_params", "replicate",
+                 "DistributedBPRTrainer", "DistributedVBPRTrainer",
+                 "DistributedALS", "initialize", "is_multiprocess", "fetch",
+                 "sharded_lookup"):
+        assert callable(getattr(tpar, name)), name
+
+
 def test_one_tile_loop():
     """The kernels share one tile loop: score_tile_sm90.cuh is the only
     header of csrc, and K1, K2 and P1 each include it and run its

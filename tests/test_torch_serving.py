@@ -158,7 +158,7 @@ def test_kernel_tables_follow_u_and_v(small_inter, dim, table_dtype):
 
 def test_unsupported_options_raise(small_inter):
     U, V, b = _tables(small_inter, 3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         TopKServer(U, V, b, _port(small_inter), mesh=object(), device="cpu")
     srv = TopKServer(U, V, b, _port(small_inter), device="cpu")
     # JAX's name for the fused kernel; the port's is "kernel"

@@ -28,7 +28,11 @@ the single-device port: DPM with its MLP and SDAE encoders (``train --model
 dpm``), late fusion (``fuse``, ``fusion/``), ``topk_unseen_scorer``, the
 experiment grid, the text tools and the rest of the data API. They run no
 kernel of their own; their tables and fused scores are checked through K1.
-Only the mesh is not ported.
+Its eighth ports the mesh (``parallel/``): ``TopKServer(mesh=)``, the
+distributed BPR and VBPR trainers, the distributed ALS sweep behind
+``WMF/CER/DPM(mesh=)``, the data-parallel encoder fit and ``train
+--mesh``, on ``torch.distributed`` (NCCL on the card, gloo on the CPU).
+With it the port does everything the JAX package does.
 
 Layout:
   config.py   the entry points' dataclass configuration
@@ -55,6 +59,9 @@ Layout:
               topk_rec_tpu/utils/profiling.py)
   eval/       on-device evaluation (counterpart of topk_rec_tpu/eval)
   serving.py  TopKServer (counterpart of topk_rec_tpu/serving.py)
+  parallel/   the (dp, mp) rank mesh, the all-to-all lookup and update,
+              the distributed trainers and ALS sweep (counterpart of
+              topk_rec_tpu/parallel)
   interop.py  JAX-package parameters and BPR/VBPR/DPM state <-> the
               port's tensors
   cli.py      ``train`` / ``evaluate`` / ``fuse`` / ``recommend``
@@ -90,6 +97,7 @@ _LAZY = {
     "CheckpointManager": "topk_rec_torch.checkpoint",
     "from_jax_params": "topk_rec_torch.interop",
     "resolve_device": "topk_rec_torch.device",
+    "make_mesh": "topk_rec_torch.parallel.mesh",
 }
 
 __all__ = list(_LAZY)

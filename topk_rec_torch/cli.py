@@ -3,8 +3,10 @@ and ``recommend``.
 
 Counterpart of ``topk_rec_tpu/cli.py``, with the same flags plus
 ``--device`` (default ``cuda``; there is no silent fallback to the CPU).
-``train`` takes ``--model bpr|vbpr|wmf|cer|dpm``; ``--mesh`` is not ported
-yet and exits with code 2. The backends are named for this
+``train`` takes ``--model bpr|vbpr|wmf|cer|dpm`` and, for a run over a
+mesh of ranks (``parallel/``), ``--mesh auto|DPxMP``, ``--exchange`` and,
+for several processes, ``--coordinator``, ``--num-processes`` and
+``--process-id``. The backends are named for this
 package: ``--engine {torch,kernel}`` stands for JAX's ``{xla,pallas}`` and
 ``--method {exact,approx,kernel,hybrid}`` for
 ``{exact,approx,pallas,hybrid}``; both default to ``kernel``, the fused
@@ -14,6 +16,8 @@ read by the port's own ``data`` package, the same parser as
 
 Usage:
   python -m topk_rec_torch.cli train --model bpr -d data -o embed/bpr
+  python -m topk_rec_torch.cli train --model bpr -d data -o embed/bpr \
+      --mesh 1x2 --coordinator host:port --num-processes 2 --process-id 0
   python -m topk_rec_torch.cli train --model cer -d data -o embed/cer \
       --content meta.pkl --d 20000 --log-dir embed/cer
   python -m topk_rec_torch.cli train --model dpm -d data -o embed/dpm \
@@ -120,8 +124,9 @@ def _device(name: str):
         raise _fail(str(e))
 
 
-def build_model(mc: ModelConfig, device):
-    """The configured model on ``device`` (cli.py:182-215)."""
+def build_model(mc: ModelConfig, device, mesh=None):
+    """The configured model on ``device`` (cli.py:182-215); WMF, CER and DPM
+    route their sweeps through ``mesh`` when one is given."""
     from .models import BPR, CER, DPM, VBPR, WMF
 
     if mc.model == "bpr":
@@ -140,22 +145,75 @@ def build_model(mc: ModelConfig, device):
         )
     if mc.model == "wmf":
         return WMF(k=mc.k, lu=mc.als_lu, lv=mc.als_lv, a=mc.als_a,
-                   b=mc.als_b, seed=mc.seed, device=device)
+                   b=mc.als_b, seed=mc.seed, device=device, mesh=mesh)
     if mc.model == "cer":
         return CER(k=mc.k, d=mc.d, lu=mc.als_lu, lv=mc.als_lv, le=mc.als_le,
-                   a=mc.als_a, b=mc.als_b, seed=mc.seed, device=device)
+                   a=mc.als_a, b=mc.als_b, seed=mc.seed, device=device,
+                   mesh=mesh)
     if mc.model == "dpm":
         return DPM(k=mc.k, d=mc.d, lu=mc.als_lu, lv=mc.als_lv, le=mc.als_le,
-                   a=mc.als_a, b=mc.als_b, seed=mc.seed, device=device)
+                   a=mc.als_a, b=mc.als_b, seed=mc.seed, device=device,
+                   mesh=mesh)
     raise SystemExit(f"unknown model {mc.model!r}")
 
 
-def train_from_config(cfg: TrainConfig, device="cuda"):
+def _parse_mesh(spec: str, device):
+    """A rank mesh from a CLI spec: "auto" (every rank, the square split of
+    ``make_mesh``) or "DPxMP", e.g. 2x4 (cli.py:218-225). A spec that does
+    not fit the process group exits 2."""
+    from .parallel import make_mesh
+
+    try:
+        if spec == "auto":
+            return make_mesh(device=device)
+        dp, _, mp = spec.partition("x")
+        return make_mesh(dp=int(dp), mp=int(mp), device=device)
+    except ValueError as e:
+        raise _fail(f"--mesh {spec}: {e}")
+
+
+def _train_pairwise_distributed(model, mesh, cfg: TrainConfig) -> None:
+    """The epoch loop of BPR and VBPR over a mesh through the distributed
+    trainers (cli.py:228-263): tables row-sharded over "mp", each batch
+    split over the ranks. Every rank draws the same chunks from the epoch's
+    generator; at the end every rank holds the full tables."""
+    import time
+
+    from .models.bpr import stream_generator
+    from .parallel import DistributedBPRTrainer, DistributedVBPRTrainer
+
+    if cfg.warm_start is not None:
+        tprint("Initialize weights with the previous trained model")
+        model.import_embeddings(cfg.warm_start)
+    limit = cfg.epoch_sample_limit or model.inter.nnz
+    batch_limit = int(limit) // cfg.batch_size + 1
+    scan_steps = min(64, batch_limit)
+    n_chunks = max(1, -(-batch_limit // scan_steps))
+    is_vbpr = type(model).__name__ == "VBPR"
+    cls = DistributedVBPRTrainer if is_vbpr else DistributedBPRTrainer
+    extra = {} if is_vbpr else {"exchange": cfg.exchange}
+    trainer = cls(model, mesh, batch_size=cfg.batch_size,
+                  scan_steps=scan_steps, **extra)
+    for eid in range(cfg.epochs):
+        t0 = time.time()
+        gen = stream_generator(model.seed, eid, mesh.device)
+        total = sum(trainer.train_chunk(gen) for _ in range(n_chunks))
+        tprint("Epoch %3d, loss %.4f, time %.3fs (mesh %s)"
+               % (eid + 1, total, time.time() - t0, mesh.shape))
+    trainer.sync_to_model()
+
+
+def train_from_config(cfg: TrainConfig, device="cuda", mesh=None):
     """Train the configured model on ``device``, export its files into
     ``cfg.out_dir`` (``final-*.dat``, and ``checkpoint.npz`` or
     ``final-E.dat`` where the model has them) and return the model
     (cli.py:266-361). DPM's encoder is ``cfg.encoder`` with the hidden
-    widths ``cfg.encoder_hidden``."""
+    widths ``cfg.encoder_hidden``.
+
+    With a ``mesh`` the model lives on the mesh's device and trains over
+    it. Every rank ends holding the full tables; rank 0 alone writes the
+    files (and the logs, dumps and trace), and the other ranks wait for it
+    at a barrier. The JAX CLI lets every process write the same paths."""
     from .checkpoint import OrbaxCheckpointError
     from .profiling import profile_trace
 
@@ -170,7 +228,24 @@ def train_from_config(cfg: TrainConfig, device="cuda"):
             f"--theta-init is only consumed by --model wmf "
             f"(got --model {mc.model})"
         )
-    model = build_model(mc, _device(device))
+    if cfg.exchange == "explicit" and mc.model != "bpr":
+        raise SystemExit(
+            "--exchange explicit is implemented for --model bpr "
+            "(the other distributed paths ride GSPMD collectives)"
+        )
+    if cfg.exchange == "explicit" and mesh is None:
+        raise SystemExit(
+            "--exchange explicit requires --mesh (the all-to-all "
+            "exchange runs over a device mesh)"
+        )
+    if cfg.exchange == "explicit" and mesh.shape["dp"] != 1:
+        raise SystemExit(
+            "--exchange explicit shards the batch over 'mp' and "
+            f"requires a pure-mp mesh (dp=1); got mesh axes {mesh.shape}"
+        )
+    lead = mesh is None or mesh.rank == 0
+    model = build_model(mc, _device(device) if mesh is None else mesh.device,
+                        mesh)
     model.load_training_data(
         os.path.join(cfg.data.data_dir, cfg.data.uid_file),
         os.path.join(cfg.data.data_dir, cfg.data.iid_file),
@@ -183,9 +258,12 @@ def train_from_config(cfg: TrainConfig, device="cuda"):
             os.path.join(cfg.data.data_dir, cfg.data.content_file),
             os.path.join(cfg.data.data_dir, cfg.data.iid_file),
         )
-    save_dir = cfg.out_dir if cfg.save_lag else None
-    with profile_trace(cfg.profile_dir):
-        if mc.model in ("bpr", "vbpr"):
+    save_dir = cfg.out_dir if cfg.save_lag and lead else None
+    log_dir = cfg.log_dir if lead else None
+    with profile_trace(cfg.profile_dir if lead else None):
+        if mc.model in ("bpr", "vbpr") and mesh is not None:
+            _train_pairwise_distributed(model, mesh, cfg)
+        elif mc.model in ("bpr", "vbpr"):
             try:
                 model.train(
                     epochs=cfg.epochs, batch_size=cfg.batch_size,
@@ -203,9 +281,9 @@ def train_from_config(cfg: TrainConfig, device="cuda"):
                 raise SystemExit(f"unknown encoder {cfg.encoder!r}")
             enc = enc_cls(mc.k, model.d,
                           hidden_layers=tuple(cfg.encoder_hidden),
-                          seed=mc.seed, device=model.device)
+                          seed=mc.seed, device=model.device, mesh=mesh)
             model.train(enc, max_iter=cfg.max_iter, model_path=cfg.warm_start,
-                        log_dir=cfg.log_dir, save_lag=cfg.save_lag,
+                        log_dir=log_dir, save_lag=cfg.save_lag,
                         save_dir=save_dir)
         else:
             extra = {}
@@ -215,18 +293,20 @@ def train_from_config(cfg: TrainConfig, device="cuda"):
                 extra["theta"] = read_dat(cfg.theta_init)
             model.train(
                 max_iter=cfg.max_iter, tol=cfg.tol,
-                model_path=cfg.warm_start, log_dir=cfg.log_dir,
+                model_path=cfg.warm_start, log_dir=log_dir,
                 save_lag=cfg.save_lag, save_dir=save_dir, **extra,
             )
-    model.export_embeddings(cfg.out_dir)
-    tprint(f"Exported embeddings to {cfg.out_dir}")
+    if lead:
+        model.export_embeddings(cfg.out_dir)
+        tprint(f"Exported embeddings to {cfg.out_dir}")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.group)
     return model
 
 
 def cmd_train(args) -> int:
-    if args.mesh is not None:
-        raise _fail("--mesh (distributed training) is not yet ported to "
-                    "topk_rec_torch")
     cfg = TrainConfig(
         data=DataConfig(data_dir=args.data, fold=args.fold,
                         content_file=args.content),
@@ -255,8 +335,26 @@ def cmd_train(args) -> int:
         theta_init=args.theta_init,
         ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,
+        exchange=args.exchange,
     )
-    train_from_config(cfg, args.device)
+    import torch.distributed as dist
+
+    # a process group this command makes, it also ends: one left to the
+    # interpreter's exit can hold the process there for minutes (NCCL)
+    owned = not dist.is_initialized()
+    try:
+        if args.coordinator or os.environ.get("TKR_COORDINATOR"):
+            # several processes: join the process group before any collective
+            from .parallel import initialize
+
+            initialize(args.coordinator, args.num_processes, args.process_id,
+                       device=_device(args.device))
+        mesh = (_parse_mesh(args.mesh, _device(args.device)) if args.mesh
+                else None)
+        train_from_config(cfg, args.device, mesh=mesh)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 
@@ -473,7 +571,21 @@ def build_parser() -> argparse.ArgumentParser:
                     default=_TC.encoder_hidden,
                     help="DPM encoder hidden widths")
     pt.add_argument("--mesh", default=None,
-                    help="distributed training: not yet ported")
+                    help='rank mesh for distributed training: "auto" (every '
+                    'rank) or "DPxMP" (e.g. 2x4); tables row-shard over mp, '
+                    'batches split over the ranks')
+    pt.add_argument("--exchange", default=_TC.exchange,
+                    choices=["gspmd", "explicit"],
+                    help="distributed BPR communication: gspmd (each batch "
+                    "over every rank, no overflow) or the explicit "
+                    "deduplicated all-to-all lookup/update exchange "
+                    "(parameter-server pattern; requires a pure-mp mesh, "
+                    "e.g. --mesh 1x8)")
+    pt.add_argument("--coordinator", default=None,
+                    help="several processes: the rendezvous host:port (or "
+                    "an init URL such as file:///path)")
+    pt.add_argument("--num-processes", type=int, default=None)
+    pt.add_argument("--process-id", type=int, default=None)
     pt.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
     pt.set_defaults(func=cmd_train)

@@ -12,7 +12,10 @@ converter: their state is the host arrays ``fue``, ``fie`` and ``E`` in
 both packages. DPM's is those arrays and its encoder's weights:
 :func:`encoder_from_jax` / :func:`encoder_to_jax` carry an encoder's state
 under the JAX package's keys (``W{i}``, ``b{i}``, ``mW{i}``, ``mb{i}``), and
-:func:`dpm_from_jax` a whole DPM's.
+:func:`dpm_from_jax` a whole DPM's. :func:`distributed_from_jax` and
+:func:`distributed_to_jax` carry the state of a distributed BPR or VBPR
+trainer: full host arrays on the JAX side, each rank's row shards on the
+port's mesh.
 """
 
 from __future__ import annotations
@@ -137,3 +140,29 @@ def dpm_from_jax(model, jax_model) -> None:
     model.fue = np.array(jax_model.fue, dtype=np.float32)
     model.fie = np.array(jax_model.fie, dtype=np.float32)
     model.tables = None
+
+
+def distributed_from_jax(trainer, params, ms=None) -> None:
+    """Load a JAX distributed trainer's state into the port's
+    ``DistributedBPRTrainer`` or ``DistributedVBPRTrainer`` ``trainer``.
+
+    ``params`` and ``ms`` are the JAX trainer's ``params`` and ``ms`` read
+    back whole (``topk_rec_tpu.parallel.fetch`` of each array), as numpy
+    arrays under JAX's keys. Every rank passes the same arrays and keeps
+    its own shards, as ``trainer.PARAM_SPECS`` places them."""
+    def host(tree):
+        return {n: np.asarray(a, np.float32) for n, a in tree.items()}
+
+    trainer.load(host(params), None if ms is None else host(ms))
+
+
+def distributed_to_jax(trainer):
+    """``(params, ms)`` of the port's distributed trainer, gathered onto
+    every rank, as the full numpy arrays under JAX's keys that the JAX
+    trainer's ``params`` and ``ms`` hold (place them with
+    ``topk_rec_tpu.parallel.shard_params``)."""
+    def host(tree):
+        return {n: t.detach().cpu().numpy().copy() for n, t in tree.items()}
+
+    params, ms = trainer.state()
+    return host(params), host(ms)

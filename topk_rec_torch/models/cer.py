@@ -102,8 +102,10 @@ class CER(WMF):
         seed: int = 0,
         block_size: int = 2048,
         device="cuda",
+        mesh=None,
     ):
-        super().__init__(k, lu, lv, a, b, seed, block_size, device=device)
+        super().__init__(k, lu, lv, a, b, seed, block_size, device=device,
+                         mesh=mesh)
         self.d = d
         self.le = le
         self.E: Optional[np.ndarray] = None

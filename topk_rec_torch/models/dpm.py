@@ -46,8 +46,10 @@ class DPM(WMF):
         seed: int = 0,
         block_size: int = 2048,
         device="cuda",
+        mesh=None,
     ):
-        super().__init__(k, lu, lv, a, b, seed, block_size, device=device)
+        super().__init__(k, lu, lv, a, b, seed, block_size, device=device,
+                         mesh=mesh)
         self.d = d
         self.le = le
         self.encoder: Optional[Encoder] = None
@@ -67,7 +69,8 @@ class DPM(WMF):
         """Alternating ALS / encoder-SGD training (dpm.py:51-174).
 
         ``encoder`` is an encoder class, built as ``(k, d,
-        device=self.device)``, or an instance. ``fit_batch`` overrides the
+        device=self.device)`` (and ``mesh=self.mesh`` with a mesh), or an
+        instance. ``fit_batch`` overrides the
         encoder's minibatch for the fit sweeps (the reference's 64 makes
         ~162 sequential steps per sweep on the MovieLens catalog). A warm
         start from ``model_path`` loads the tables and, through
@@ -77,7 +80,10 @@ class DPM(WMF):
         if self.inter is None or self.feat is None:
             raise ValueError("DPM needs training data and features")
         if isinstance(encoder, type):
-            self.encoder = encoder(self.k, self.d, device=self.device)
+            # a mesh model fits its encoder data-parallel (dpm.py:84-88)
+            extra = {} if self.mesh is None else {"mesh": self.mesh}
+            self.encoder = encoder(self.k, self.d, device=self.device,
+                                   **extra)
         else:
             self.encoder = encoder
         if fit_batch is not None:

@@ -26,6 +26,13 @@ masking noise from a generator on the device seeded by ``seed + 1``; the
 tests carry weights and masks across. Gradients come from autograd; a step's
 update is a few ``torch._foreach_*`` calls, and a sweep's summed loss stays
 on the device until the sweep ends. Every product is fp32 with TF32 off.
+
+With a ``mesh`` (``set_mesh``) the fit is data-parallel (encoders.py:163-
+179): each minibatch's rows are split over "dp", the parameters are
+replicated, and the gradients are summed over "dp" with ``all_reduce``
+before RMSProp. The shuffle is the same NumPy stream on every rank, so the
+replicas stay equal; predictions and the SDAE's pretraining run whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+import torch.distributed as dist
 
 from ..device import resolve_device
 
@@ -86,22 +95,34 @@ def _rmsprop_(params: List[torch.Tensor], grads: List[torch.Tensor],
         torch._foreach_addcdiv_(params, grads, denom, value=-lr)
 
 
-def _fit_epoch(params, ms, X, Y, idx, row_ok, lr: float, batch_size: int):
+def _fit_epoch(params, ms, X, Y, idx, row_ok, lr: float, batch_size: int,
+               mesh=None):
     """One minibatch sweep over the rows ``X[idx]`` against ``Y[idx]``
     (encoders.py:63-111). ``idx`` [n_pad] is the padded permutation and
     ``row_ok`` [n_pad] its loss weights. Updates ``params`` and ``ms`` (flat
     lists [W0, b0, W1, ...]) in place; returns the summed pre-update loss as
-    a 0-d tensor."""
+    a 0-d tensor. With a ``mesh``, this rank takes its part of each
+    minibatch's rows over "dp" and the gradients and the loss are summed
+    over "dp"."""
     layers = list(zip(params[0::2], params[1::2]))
     total = torch.zeros((), dtype=torch.float32, device=X.device)
     for s in range(idx.shape[0] // batch_size):
         rows = idx[s * batch_size:(s + 1) * batch_size]
-        xb, yb = X.index_select(0, rows), Y.index_select(0, rows)
         wb = row_ok[s * batch_size:(s + 1) * batch_size]
+        if mesh is not None:
+            part = mesh.coords["dp"]
+            rows = rows.tensor_split(mesh.shape["dp"])[part]
+            wb = wb.tensor_split(mesh.shape["dp"])[part]
+        xb, yb = X.index_select(0, rows), Y.index_select(0, rows)
         loss = 0.5 * (wb[:, None] * (yb - _forward(layers, xb)) ** 2).sum()
         grads = torch.autograd.grad(loss, params)
+        if mesh is not None:
+            for g in grads:
+                dist.all_reduce(g, group=mesh.groups["dp"])
         _rmsprop_(params, list(grads), ms, lr)
         total += loss.detach()
+    if mesh is not None:
+        dist.all_reduce(total, group=mesh.groups["dp"])
     return total
 
 
@@ -142,13 +163,18 @@ class MLPEncoder(nn.Module, Encoder):
         seed: int = 0,
         batch_size: int = 64,
         device="cuda",
+        mesh=None,
     ):
+        """With a ``mesh`` the encoder lives on the mesh's device (``device``
+        is not read) and fits data-parallel."""
         super().__init__()
         self.k = k
         self.d = d
         self.lr = lr
         self.batch_size = batch_size
-        self.device = resolve_device(device)
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
+        self.mesh = None
         self._rng = np.random.default_rng(seed)
         gen = torch.Generator().manual_seed(seed)  # the same on every device
         dims = [d, *hidden_layers, k]
@@ -167,6 +193,16 @@ class MLPEncoder(nn.Module, Encoder):
         self._x_cache_key = None
         self._x_cache_src = None
         self._x_cache = None
+        if mesh is not None:
+            self.set_mesh(mesh)
+
+    def set_mesh(self, mesh) -> None:
+        """Fit data-parallel over the mesh's "dp" axis; the encoder must
+        live on the mesh's device."""
+        if mesh.device != self.device:
+            raise ValueError(f"the encoder lives on {self.device}, this "
+                             f"rank's mesh device is {mesh.device}")
+        self.mesh = mesh
 
     @property
     def params(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -248,7 +284,7 @@ class MLPEncoder(nn.Module, Encoder):
         idx, ok = self._batches(Xd.shape[0])
         params, ms = self._flat()
         return _fit_epoch(params, ms, Xd, Yd, idx, ok, self.lr,
-                          self.batch_size)
+                          self.batch_size, self.mesh)
 
     def fit(self, X, Y) -> float:
         """One shuffled SGD sweep; returns the summed pre-update loss."""
@@ -294,11 +330,13 @@ class SDAEEncoder(MLPEncoder):
         seed: int = 0,
         batch_size: int = 64,
         device="cuda",
+        mesh=None,
         corrupt: float = 0.3,
         pretrain_lr: float = 1e-3,
         pretrain_epochs: int = 3,
     ):
-        super().__init__(k, d, lr, hidden_layers, seed, batch_size, device)
+        super().__init__(k, d, lr, hidden_layers, seed, batch_size, device,
+                         mesh)
         self.corrupt = corrupt
         self.pretrain_lr = pretrain_lr
         self.pretrain_epochs = pretrain_epochs

@@ -47,10 +47,13 @@ from .bpr import INIT_STREAM, stream_generator
 NAMES = ("ure", "uce", "ire", "irb", "cem", "icb")  # JAX's _params keys
 
 
-def _vbpr_loss(put, pit, pjt, cem, icb, ic, jc, hyper, mode, kh):
+def _vbpr_loss(put, pit, pjt, cem, icb, ic, jc, hyper, mode, kh,
+               dense_reg: bool = True):
     """VBPR batch loss (vbpr.py:74-104) over the fused gathered rows: ``put``
     [B, 2·kh] = [ure ‖ uce], ``pit``/``pjt`` [B, kh + 1] = [ire ‖ irb], and
-    the content rows ``ic``/``jc`` [B, d]."""
+    the content rows ``ic``/``jc`` [B, d]. ``dense_reg=False`` leaves out
+    the regularization of ``cem`` and ``icb``, which a batch split over
+    several ranks counts on one of them only."""
     lu, li, lj, lb, le = (hyper[n] for n in ("lu", "li", "lj", "lb", "le"))
     ureb, uceb = put[:, :kh], put[:, kh:]
     ireb, irbb = pit[:, :kh], pit[:, kh]
@@ -61,15 +64,18 @@ def _vbpr_loss(put, pit, pjt, cem, icb, ic, jc, hyper, mode, kh):
          + (uceb * (iceb - jceb)).sum(1) + (ic - jc) @ icb)
     nll = torch.logaddexp(x.new_zeros(()), -x).sum()
     if mode == "l2":
-        reg = (0.5 * (cem ** 2).sum() * le
-               + 0.5 * ((ureb ** 2 + uceb ** 2) * lu + ireb ** 2 * li
-                        + jreb ** 2 * lj).sum()
-               + 0.5 * ((irbb ** 2 + jrbb ** 2).sum() + (icb ** 2).sum()) * lb)
+        reg = (0.5 * ((ureb ** 2 + uceb ** 2) * lu + ireb ** 2 * li
+                      + jreb ** 2 * lj).sum()
+               + 0.5 * (irbb ** 2 + jrbb ** 2).sum() * lb)
+        if dense_reg:
+            reg = reg + 0.5 * (cem ** 2).sum() * le + 0.5 * (
+                icb ** 2).sum() * lb
     else:
-        reg = (cem.abs().sum() * le
-               + ((ureb.abs() + uceb.abs()) * lu + ireb.abs() * li
-                  + jreb.abs() * lj).sum()
-               + ((irbb.abs() + jrbb.abs()).sum() + icb.abs().sum()) * lb)
+        reg = (((ureb.abs() + uceb.abs()) * lu + ireb.abs() * li
+                + jreb.abs() * lj).sum()
+               + (irbb.abs() + jrbb.abs()).sum() * lb)
+        if dense_reg:
+            reg = reg + cem.abs().sum() * le + icb.abs().sum() * lb
     return nll + reg
 
 

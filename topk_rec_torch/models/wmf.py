@@ -12,6 +12,11 @@ each other value for value. During ``train`` the tables are the buffers of
 an :class:`ALSTables` on the model's device, and each iteration makes one
 host sync, reading the loss; afterwards ``fue``/``fie`` are host arrays
 again.
+
+With a ``mesh`` (``set_mesh``), every half-sweep runs through the
+distributed sweep (``parallel/als.py``), its slots split over the mesh's
+ranks; every rank ends each sweep holding the full tables. CER and DPM
+inherit it.
 """
 
 from __future__ import annotations
@@ -54,8 +59,11 @@ class WMF(Recommender):
         seed: int = 0,
         block_size: int = 2048,
         device="cuda",
+        mesh=None,
     ):
-        super().__init__(k, device)
+        """With a ``mesh`` the model lives on the mesh's device and
+        ``device`` is not read."""
+        super().__init__(k, mesh.device if mesh is not None else device)
         self.lu = lu
         self.lv = lv
         self.a = a
@@ -65,6 +73,21 @@ class WMF(Recommender):
         self._user_plan: Optional[ALSPlan] = None
         self._item_plan: Optional[ALSPlan] = None
         self.tables: Optional[ALSTables] = None
+        self._half_sweep = half_sweep
+        self.mesh = None
+        if mesh is not None:
+            self.set_mesh(mesh)
+
+    def set_mesh(self, mesh) -> None:
+        """Route every ALS half-sweep through the distributed sweep
+        (wmf.py:56-63); the model must live on the mesh's device."""
+        from ..parallel.als import DistributedALS
+
+        if mesh.device != self.device:
+            raise ValueError(f"the model lives on {self.device}, this "
+                             f"rank's mesh device is {mesh.device}")
+        self.mesh = mesh
+        self._half_sweep = DistributedALS(mesh).half_sweep
 
     def _on_data_loaded(self) -> None:
         inter = self.inter
@@ -92,11 +115,12 @@ class WMF(Recommender):
         the optional item ``prior``); returns the item fit loss as a 0-d
         tensor (wmf.py:92-122)."""
         t = self.tables if self.tables is not None else self._device_tables()
-        t.U, _ = half_sweep(self._user_plan, t.U, t.V, self._rated_items,
-                            self.a, self.b, self.lu, as_numpy=False)
-        t.V, fit = half_sweep(self._item_plan, t.V, t.U, self._rated_users,
-                              self.a, self.b, self.lv, prior=prior,
-                              as_numpy=False)
+        t.U, _ = self._half_sweep(self._user_plan, t.U, t.V,
+                                  self._rated_items, self.a, self.b, self.lu,
+                                  as_numpy=False)
+        t.V, fit = self._half_sweep(self._item_plan, t.V, t.U,
+                                    self._rated_users, self.a, self.b,
+                                    self.lv, prior=prior, as_numpy=False)
         return fit
 
     def _save_lag_dump(self, save_dir: str, it: int) -> None:

@@ -195,6 +195,89 @@ class ALSPlan:
             self._n_other = n_other
         return self._selection
 
+    def slot_selection(self, n_other: int, lo: int,
+                       hi: int) -> List[torch.Tensor]:
+        """As :meth:`selection_for`, for the slots [lo, hi) of every block
+        only: per block the CSR pair matrix [hi - lo, n_other], without a
+        padding row. Built from one host read of the degrees."""
+        deg = self.deg_stack.cpu().numpy()
+        offs = np.concatenate([np.zeros((self.n_blocks, 1), np.int64),
+                               np.cumsum(deg, axis=1)], axis=1)
+        out = []
+        with warnings.catch_warnings():  # "CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            for blk in range(self.n_blocks):
+                c0, c1 = int(offs[blk, lo]), int(offs[blk, hi])
+                crow = torch.from_numpy(offs[blk, lo:hi + 1] - c0).to(
+                    self.device)
+                out.append(torch.sparse_csr_tensor(
+                    crow, self.cols_stack[blk, c0:c1],
+                    torch.ones(c1 - c0, device=self.device),
+                    size=(hi - lo, n_other), check_invariants=False))
+        return out
+
+
+def to_slots(plan: ALSPlan, t: torch.Tensor) -> torch.Tensor:
+    """Entity rows [n_this, k] -> block slots [n_blocks, block_size, k]; an
+    empty slot (perm == n_this) reads a zero row, as JAX's
+    ``.at[perm].get(mode="fill")``."""
+    k = t.shape[1]
+    return torch.cat([t, t.new_zeros(1, k)])[plan.perm].view(
+        plan.n_blocks, plan.block_size, k)
+
+
+def from_slots(plan: ALSPlan, stack: torch.Tensor) -> torch.Tensor:
+    """Block slots -> entity order; empty slots land in row n_this, which is
+    dropped."""
+    k = stack.shape[-1]
+    out = stack.new_zeros(plan.n_this + 1, k)
+    out[plan.perm] = stack.reshape(-1, k)
+    return out[:plan.n_this]
+
+
+def solve_slots(
+    selection: List[torch.Tensor],  # per block, the pairs of the slots
+    deg_stack: torch.Tensor,   # [n_blocks, s] the slots' degrees
+    old_stack: torch.Tensor,   # [n_blocks, s, k] the slots' current rows
+    prior_stack: Optional[torch.Tensor],  # [n_blocks, s, k] or None
+    other_emb: torch.Tensor,   # [n_other, k]
+    rated_mask: torch.Tensor,  # float32 [n_other], 1 for rated rows
+    a: float,
+    b: float,
+    lam: float,
+    keep_old_unrated: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Solve ``s`` slots of every block (the block loop of ``_sweep_impl``,
+    als.py:209-311); returns (new rows [n_blocks, s, k], their fit as a 0-d
+    tensor)."""
+    n_other, k = other_emb.shape
+    s = deg_stack.shape[1]
+    # [v vᵀ ‖ v] per fixed row: one sparse product gives both sums
+    vvx = torch.cat([(other_emb[:, :, None] * other_emb[:, None, :])
+                     .reshape(n_other, k * k), other_emb], 1)
+    sel = other_emb * rated_mask[:, None]
+    gram_b = b * gram_matrix(sel)
+    eye = lam * torch.eye(k, dtype=torch.float32, device=other_emb.device)
+    new_stack = torch.empty_like(old_stack)
+    fits = []
+    for blk, S in enumerate(selection):
+        sums = (S @ vvx)[:s]
+        P, sum_v = sums[:, :k * k].view(s, k, k), sums[:, k * k:]
+        A_fit = gram_b + (a - b) * P
+        rhs = a * sum_v
+        if prior_stack is not None:
+            rhs = rhs + lam * prior_stack[blk]
+        new = batched_solve(A_fit + eye, rhs)
+        deg = deg_stack[blk]
+        if keep_old_unrated:
+            new = torch.where((deg > 0)[:, None], new, old_stack[blk])
+        new_stack[blk] = new
+        quad = 0.5 * torch.einsum("bi,bij,bj->b", new, A_fit, new)
+        lin = a * (sum_v * new).sum(1)
+        fits.append(torch.where(deg > 0, 0.5 * deg * a + quad - lin,
+                                0.0).sum())
+    return new_stack, torch.stack(fits).sum()
+
 
 def _sweep(
     plan: ALSPlan,
@@ -209,44 +292,19 @@ def _sweep(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One half-sweep over the plan's blocks (``_sweep_impl``, als.py:209-
     311); returns (new [n_this, k], fit as a 0-d tensor)."""
-    n_other, k = other_emb.shape
-    bs = plan.block_size
-    # [v vᵀ ‖ v] per fixed row: one sparse product gives both sums
-    vvx = torch.cat([(other_emb[:, :, None] * other_emb[:, None, :])
-                     .reshape(n_other, k * k), other_emb], 1)
-    sel = other_emb * rated_mask[:, None]
-    gram_b = b * gram_matrix(sel)
-    eye = lam * torch.eye(k, dtype=torch.float32, device=other_emb.device)
-    # route entities to their block slots; an empty slot (perm == n_this)
-    # reads a zero row, as JAX's .at[perm].get(mode="fill")
-    def slots(t):
-        return torch.cat([t, t.new_zeros(1, k)])[plan.perm].view(
-            plan.n_blocks, bs, k)
+    new_stack, fit = solve_slots(
+        plan.selection_for(other_emb.shape[0]), plan.deg_stack,
+        to_slots(plan, this_emb),
+        to_slots(plan, prior) if prior is not None else None, other_emb,
+        rated_mask, a, b, lam, keep_old_unrated)
+    return from_slots(plan, new_stack), fit
 
-    old_stack = slots(this_emb)
-    prior_stack = slots(prior) if prior is not None else None
-    new_stack = torch.empty_like(old_stack)
-    fits = []
-    for blk, S in enumerate(plan.selection_for(n_other)):
-        sums = (S @ vvx)[:bs]
-        P, sum_v = sums[:, :k * k].view(bs, k, k), sums[:, k * k:]
-        A_fit = gram_b + (a - b) * P
-        rhs = a * sum_v
-        if prior_stack is not None:
-            rhs = rhs + lam * prior_stack[blk]
-        new = batched_solve(A_fit + eye, rhs)
-        deg = plan.deg_stack[blk]
-        if keep_old_unrated:
-            new = torch.where((deg > 0)[:, None], new, old_stack[blk])
-        new_stack[blk] = new
-        quad = 0.5 * torch.einsum("bi,bij,bj->b", new, A_fit, new)
-        lin = a * (sum_v * new).sum(1)
-        fits.append(torch.where(deg > 0, 0.5 * deg * a + quad - lin,
-                                0.0).sum())
-    # back to entity order; empty slots land in row n_this, which is dropped
-    out = this_emb.new_zeros(plan.n_this + 1, k)
-    out[plan.perm] = new_stack.view(-1, k)
-    return out[:plan.n_this], torch.stack(fits).sum()
+
+def rated_mask_of(n_other: int, rated_other, device) -> torch.Tensor:
+    """float32 [n_other]: 1 at the rated rows of the fixed side."""
+    mask = torch.zeros(n_other, device=device)
+    mask[torch.as_tensor(rated_other).to(device).long()] = 1.0
+    return mask
 
 
 def half_sweep(
@@ -276,8 +334,7 @@ def half_sweep(
         return torch.as_tensor(x, dtype=torch.float32).to(dev)
 
     other = on_dev(other_emb)
-    rated_mask = torch.zeros(other.shape[0], device=dev)
-    rated_mask[torch.as_tensor(rated_other).to(dev).long()] = 1.0
+    rated_mask = rated_mask_of(other.shape[0], rated_other, dev)
     use_prior = prior is not None
     new, fit = _sweep(plan, on_dev(this_emb), other, rated_mask,
                       on_dev(prior) if use_prior else None, float(a),

@@ -16,8 +16,14 @@ registered buffers on one device. Four selection methods:
 
 All run with bf16-rounded table inputs and fp32 accumulation, which is what
 the TPU's ``Precision.DEFAULT`` does (serving.py:66-68, 103-110), so the
-methods rank the same numbers. The mesh-sharded server is not ported yet
-(ROADMAP.md).
+methods rank the same numbers.
+
+With a ``mesh`` (``parallel/mesh.py``), U and the seen store are
+row-sharded over "mp" and V and the bias replicated (serving.py:159-177).
+Every rank calls ``recommend`` with the same batch: each looks up the
+user and seen rows of its slice through the all-to-all exchange
+(``parallel/lookup.py``), ranks them with the same ``_query``, and the
+slices are all-gathered, so every rank returns the full result.
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ from torch import nn
 
 from .data.dataset import Interactions
 from .device import resolve_device
+from .parallel.distributed import all_gather_rows
+from .parallel.lookup import default_capacity, sharded_lookup
+from .parallel.mesh import Mesh
 from .ops.topk_fused import (
     NEG_INF,
     bitmap_tensor,
@@ -119,15 +128,16 @@ class TopKServer(nn.Module):
         (the bias stays fp32). ``seen_format`` picks the per-user seen
         store (serving.py:112-124): ``"bitmap"`` (int32 words, n_users x
         n_items/8 bytes) or ``"lists"`` (padded sorted item lists,
-        n_users x max_degree x 4 bytes)."""
+        n_users x max_degree x 4 bytes). With a ``mesh`` the server lives
+        on the mesh's device and ``device`` is not read."""
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving is not ported to topk_rec_torch yet"
-            )
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a topk_rec_torch.parallel.Mesh, "
+                            f"got {type(mesh).__name__}")
         if seen_format not in ("bitmap", "lists"):
             raise ValueError(f"unknown seen_format {seen_format!r}")
-        dev = resolve_device(device)
+        self.mesh = mesh
+        dev = mesh.device if mesh is not None else resolve_device(device)
         dt = torch.float32 if table_dtype is None else table_dtype
 
         def table(a, dtype):
@@ -138,7 +148,8 @@ class TopKServer(nn.Module):
                 a = a.clone()
             return a.to(device=dev, dtype=dtype).contiguous()
 
-        self.register_buffer("U", table(U, dt))
+        self.n_users = U.shape[0]
+        self.register_buffer("U", self._shard(table(U, dt), 0.0))
         self.register_buffer("V", table(V, dt))
         self.register_buffer(
             "bias",
@@ -151,13 +162,12 @@ class TopKServer(nn.Module):
         # since (``load_state_dict``, an in-place edit, ``to``). On the CPU
         # the kernels' plain twins read U and V.
         self._kernel_key = None
+        self._lookup_capacity = None  # the mesh lookup's, sticky
         for name in ("U", "V"):
             self.register_buffer(name + "_kernel", None, persistent=False)
-        if dev.type == "cuda":
-            self._make_kernel_tables()
         self.n_items = self.V.shape[0]
         self.seen_format = seen_format
-        n_users = self.U.shape[0]
+        n_users = self.n_users
         n_words = (self.n_items + 31) // 32
         if exclude_seen and interactions is not None:
             if seen_format == "lists":
@@ -177,7 +187,27 @@ class TopKServer(nn.Module):
         else:
             seen = torch.zeros((n_users, n_words), dtype=torch.int32,
                                device=dev)
-        self.register_buffer("seen", seen)
+        self.register_buffer(
+            "seen",
+            self._shard(seen, self.n_items if seen_format == "lists" else 0))
+        if dev.type == "cuda":
+            self._make_kernel_tables()
+
+    def _shard(self, t: torch.Tensor, pad_value) -> torch.Tensor:
+        """``t`` itself without a mesh; with one, this rank's block of its
+        rows over "mp", the rows padded with ``pad_value`` to a multiple of
+        the axis (no request reads a padded row)."""
+        if self.mesh is None:
+            return t
+        n = self.mesh.shape["mp"]
+        per = -(-t.shape[0] // n)
+        at = self.mesh.coords["mp"] * per
+        block = t[at:at + per]
+        pad = per - block.shape[0]
+        if pad:
+            block = torch.cat([block, block.new_full((pad, *t.shape[1:]),
+                                                     pad_value)])
+        return block.clone()
 
     def _table_key(self):
         """What identifies the contents of U and V without reading them:
@@ -231,10 +261,38 @@ class TopKServer(nn.Module):
         U, V = self.U, self.V
         if method in ("kernel", "hybrid"):
             U, V = self._kernel_tables()
+        if self.mesh is not None:
+            return self._query_mesh(U, V, uid, k, method)
         return _query_local(
             U, V, self.bias, self.seen, uid, k, method, self.n_items,
             self.seen_format,
         )
+
+    def _query_mesh(self, U, V, uid, k, method):
+        """The sharded query (serving.py:225-259): the batch padded to a
+        multiple of "mp", this rank's slice looked up and ranked, the
+        slices all-gathered (padded rows included: callers slice to the
+        request length).
+
+        Overflow costs no host sync on the common path: when any rank's
+        lookup dropped a row, the values come back NaN on every rank, and
+        ``recommend`` grows the capacity and asks again."""
+        mesh = self.mesh
+        n_shards = mesh.shape["mp"]
+        uid = torch.cat([uid, uid.new_zeros((-uid.shape[0]) % n_shards)])
+        b_local = uid.shape[0] // n_shards
+        if self._lookup_capacity is None:
+            self._lookup_capacity = default_capacity(b_local, n_shards)
+        self._cap_limit = b_local
+        cap = min(self._lookup_capacity, b_local)
+        u_rows, ovf_u = sharded_lookup(U, uid, mesh, capacity=cap)
+        s_rows, ovf_s = sharded_lookup(self.seen, uid, mesh, capacity=cap)
+        vals, idx = _query(u_rows, V, self.bias, s_rows, k, method,
+                           self.n_items, self.seen_format)
+        overflowed = (ovf_u.sum() + ovf_s.sum()) > 0
+        vals = torch.where(overflowed, torch.nan, vals)
+        group = mesh.groups["mp"]
+        return all_gather_rows(vals, group), all_gather_rows(idx, group)
 
     def recommend(
         self,
@@ -243,6 +301,19 @@ class TopKServer(nn.Module):
         method: str = "exact",
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k unseen items for a batch of users: numpy (scores [B, k],
-        item ids [B, k]); score -inf means fewer than k unseen items."""
-        vals, idx = self.recommend_async(user_ids, k, method)
-        return vals.cpu().numpy(), idx.cpu().numpy()
+        item ids [B, k]); score -inf means fewer than k unseen items.
+
+        With a mesh, a batch whose lookup overflowed is asked again with
+        twice the sticky capacity (serving.py:185-210); a capacity of the
+        local batch cannot overflow, so the loop ends. Every rank reads the
+        same gathered values, so all ranks retry together."""
+        n = len(user_ids)
+        while True:
+            vals, idx = self.recommend_async(user_ids, k, method)
+            v = vals.cpu().numpy()[:n]
+            if self.mesh is None or not np.isnan(v).any():
+                return v, idx.cpu().numpy()[:n]
+            cap = self._lookup_capacity
+            if cap >= self._cap_limit:  # the NaN came from the data itself
+                return v, idx.cpu().numpy()[:n]
+            self._lookup_capacity = min(2 * cap, self._cap_limit)
