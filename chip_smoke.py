@@ -60,7 +60,17 @@ without the final ``ok`` line):
    must agree; accuracy@30 must beat the untrained tables', ``--epochs
    0``), ``recommend --method kernel`` and ``hybrid`` on the trained tables,
    and training samples/s at batch 256 and 8,192 (CUDA events over whole
-   chunks after a warm-up chunk) with the kernel launches per step;
+   chunks after a warm-up chunk) with the kernel launches per step. Then
+   "train_layout", BPR's two table layouts (separate, and the fused
+   [n_users + n_items, k + 1] table): one chunk of 128 steps under each
+   from the same tables on the same triplets at batch 256 and 8,192
+   (equal within rtol 2e-4 / atol 1e-5; the fused table's user bias
+   column 0 after every step), ms per step and samples/s of each in
+   turns, launches per step and busy share at 256 with the fused chunk's
+   copy of the tables, and ``train --batch-size 8192`` through the CLI
+   (``auto`` must pick the fused table) with ``evaluate`` of its tables
+   through K1 under ``TKR_TIMING=1`` (the phase times printed; accuracy@30
+   above the untrained tables');
 9. "content": item features at d = 20,000 (``meta.pkl``, word counts that
    encode each item's place in the fold's zipf law) and held-out likes of
    cold items from the same law (``zom``); through
@@ -1108,6 +1118,217 @@ def train_rate(dev, root):
                       else "not measured"))
 
 
+LAYOUT_STEPS = 128  # steps of each chunk of the layout phase
+# the order of the timed runs, separate (False) and fused (True) in turns:
+# the host's pace drifts within a run
+TURNS = (False, True, True, False, True, False, False, True)
+SLEEP_CYCLES = 50_000_000  # about 25 ms of the card's clock
+
+
+def train_layout(dev, root):
+    """Phase 8c: BPR's two table layouts at k = 50 on phase 6's fold.
+
+    (a) one chunk of 128 steps under each layout from the same tables on
+    the same triplets, at batch 256 and 8,192: equal within rtol 2e-4 /
+    atol 1e-5 (``index_add_``'s atomics sum in another order), the fused
+    table's user bias column and its accumulator 0 after every step;
+    (b) ms per step and samples/s of each layout at both batches (CUDA
+    events over whole chunks after a warm-up chunk, the layouts in turns,
+    ``TURNS``); (c) launches per step and busy share of each layout at
+    batch 256 (torch.profiler), and the fused chunk's copy of the tables
+    in and out; (d) ``train --batch-size 8192``
+    through the CLI, where ``auto`` must pick the fused table, then
+    ``evaluate`` of its tables through K1 with ``TKR_TIMING=1``: its phase
+    times, and accuracy@30 above phase 8's untrained tables. Returns K1's
+    launches of (d)."""
+    from topk_rec_torch.cli import _load_fold
+    from topk_rec_torch.models import bpr as tbpr
+    from topk_rec_torch.models.bpr import BPR, INIT_STREAM, stream_generator
+    from topk_rec_torch.ops.topk_fused import fused_score_topk
+
+    gpu = f'"{gpu_line()}"'
+    inter, _, _ = _load_fold(root, 0)
+    model = BPR(k=DIM, lr=TRAIN_LR, device=dev)
+    model.set_interactions(inter)
+    model._init_params(stream_generator(0, INIT_STREAM, dev))
+    n_users, n_rows = inter.n_users, inter.n_users + inter.n_items
+    steps = LAYOUT_STEPS
+    # accumulators of 0.01, as phase 12c: from zero, RMSProp's first step
+    # is ±3.16·lr whatever the gradient's size, so a gradient near zero
+    # would turn on the order of its sums
+    model.tables.load(ms={n: torch.full_like(t, 0.01)
+                          for n, t in model.tables.ms().items()})
+    params = {n: t.clone() for n, t in model.tables.params().items()}
+    ms0 = {n: t.clone() for n, t in model.tables.ms().items()}
+    hyper = model.hyper()
+    chunks = {"separate": tbpr.run_chunk, "fused": tbpr.run_chunk_fused}
+
+    bias_max = []
+    apply = tbpr.apply_planned_rmsprop
+
+    def watched(table, acc, *args):
+        out = apply(table, acc, *args)
+        if table.shape[0] == n_rows:  # the fused table
+            bias_max.append(torch.maximum(table[:n_users, DIM].abs().max(),
+                                          acc[:n_users, DIM].abs().max()))
+        return out
+
+    for batch in (256, 8192):
+        u, i, j = model.sample_chunk(stream_generator(0, 2, dev), steps,
+                                     batch)
+        got = {}
+        tbpr.apply_planned_rmsprop = watched
+        try:
+            for name, chunk in chunks.items():
+                model.tables.load(params, ms0)
+                loss = float(chunk(model.tables, u, i, j, hyper, model.mode))
+                got[name] = ({n: t.clone() for n, t in
+                              model.tables.params().items()},
+                             {n: t.clone() for n, t in
+                              model.tables.ms().items()}, loss)
+        finally:
+            tbpr.apply_planned_rmsprop = apply
+        (p_s, m_s, l_s), (p_f, m_f, l_f) = got["separate"], got["fused"]
+        diffs = {f"{w}{n}": float((a[n] - b[n]).abs().max())
+                 for w, a, b in (("", p_f, p_s), ("ms_", m_f, m_s))
+                 for n in ("ue", "ie", "ib")}
+        bias = float(torch.stack(bias_max).max())
+        phase("train_layout_equal", batch=batch, steps=steps,
+              loss_separate=f"{l_s:.4f}", loss_fused=f"{l_f:.4f}",
+              user_bias_max=bias, fused_updates=len(bias_max), gpu=gpu,
+              **{f"max_abs_diff_{n}": f"{d:.3e}" for n, d in diffs.items()})
+        if not (chunk_close(p_f, p_s) and chunk_close(m_f, m_s)
+                and abs(l_f - l_s) <= 1e-4 * abs(l_s)):
+            raise AssertionError(f"batch {batch}: the fused chunk differs "
+                                 "from the separate one")
+        if bias != 0.0 or len(bias_max) != steps:
+            raise AssertionError(f"batch {batch}: the fused table's user "
+                                 f"bias column reached {bias}")
+        bias_max.clear()
+    model.tables.load(params, ms0)
+
+    def timed_chunks(n_chunks, batch, fused, gen):
+        torch.cuda.synchronize()
+        _, ms = timed_ms(lambda: [model.train_chunk(gen, steps, batch, fused)
+                                  for _ in range(n_chunks)])
+        return ms
+
+    step_ms = {}
+    for batch, n_chunks in ((256, 4), (8192, 2)):
+        gen = stream_generator(0, 3, dev)
+        for fused in (False, True):
+            model.train_chunk(gen, steps, batch, fused)  # warm-up
+        ms = {False: [], True: []}
+        for fused in TURNS:
+            ms[fused].append(timed_chunks(n_chunks, batch, fused, gen))
+        for fused in (False, True):
+            runs = len(ms[fused])
+            per_step = sum(ms[fused]) / (runs * n_chunks * steps)
+            if batch == 256:
+                step_ms[fused] = per_step
+            phase("train_layout_rate", batch=batch,
+                  layout="fused" if fused else "separate",
+                  chunks=runs * n_chunks, steps=steps,
+                  ms_per_step=f"{per_step:.4f}",
+                  samples_per_s=f"{batch / per_step * 1e3:.1f}",
+                  runs_ms="|".join(f"{t:.3f}" for t in ms[fused]), gpu=gpu)
+
+    # the chunk's copy of both tables and accumulators in and out, once
+    # per chunk: its device time by CUDA events while the card works
+    # through launches queued behind a sleep (so the host's dispatch is
+    # not in it), and the kernels the profiler recorded, a sleep after
+    # them. The copy makes 10 launches, but on the card the profiler kept
+    # the records of 1 to 10 of them in such a short window
+    def copy():
+        tbpr.unfuse_tables(model.tables, *tbpr.fuse_tables(model.tables))
+
+    def copy_then_sleep():
+        copy()
+        torch.cuda._sleep(SLEEP_CYCLES)
+
+    copy()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    _, copy_ms = timed_ms(copy)
+    copies = [e for e in profiled_kernels(copy_then_sleep)
+              if "spin_kernel" not in e.name]  # _sleep's kernel
+    # each buffer read and written on the way in and again on the way out
+    moved = 4 * nbytes(*model.tables.buffers())
+
+    gen = stream_generator(0, 4, dev)
+    for fused in (False, True):
+        model.train_chunk(gen, steps, 256, fused)
+        kernels = profiled_kernels(
+            lambda: model.train_chunk(gen, steps, 256, fused))
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        fields = {}
+        if fused:
+            fields = dict(copy_kernels_recorded=len(copies),
+                          copy_device_ms=f"{copy_ms:.4f}",
+                          copy_moved_mb=f"{moved / 1e6:.1f}")
+        # the profiler slows the host down: the busy share is that of the
+        # unprofiled chunk timed in (b)
+        phase("train_layout_profile", batch=256,
+              layout="fused" if fused else "separate", steps=steps,
+              kernels_per_step=f"{len(kernels) / steps:.1f}",
+              device_busy_us=f"{busy_us:.0f}",
+              busy_share=f"{busy_us / (step_ms[fused] * steps * 1e3):.4f}",
+              gpu=gpu, **fields)
+    del model
+
+    out = os.path.join(root, "bpr8192")
+    lines, wall = run_cli(["train", "--model", "bpr", "-d", root, "-o", out,
+                           "--k", str(DIM), "--batch-size", "8192", "--lr",
+                           str(TRAIN_LR), "--epochs", str(TRAIN_EPOCHS),
+                           "--device", str(dev)])
+    ran = [m.group(1) for m in (re.search(r"on \S+, (\w+) tables", ln)
+                                for ln in lines) if m]
+    losses = [float(m.group(1)) for m in (EPOCH_RE.search(ln)
+                                          for ln in lines) if m]
+    phase("train_layout_cli", batch=8192, epochs=len(losses),
+          layout=ran[0] if ran else "not printed", wall_s=f"{wall:.3f}",
+          losses="|".join(f"{x:.4f}" for x in losses), gpu=gpu)
+    if ran != ["fused"]:
+        raise AssertionError(f"train --batch-size 8192 ran {ran}, not the "
+                             "fused table")
+    if len(losses) != TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"train losses not finite: {losses}")
+
+    fused_score_topk.launches = 0
+    acc = {}
+    for model_dir in (out, os.path.join(root, "bpr0")):
+        err = io.StringIO()
+        os.environ["TKR_TIMING"] = "1"
+        try:
+            with contextlib.redirect_stderr(err):
+                lines, wall = run_cli(["evaluate", "-d", root, "-m",
+                                       model_dir, "-f", "0", "-sl", "zp",
+                                       "--engine", "kernel", "--device",
+                                       str(dev)])
+        finally:
+            os.environ.pop("TKR_TIMING")
+        times = dict(ln.split()[1:3] for ln in err.getvalue().splitlines()
+                     if ln.startswith("timing: "))
+        if list(times) != ["fold_parse", "dat_parse", "zp_inputs",
+                           "zp_eval", "total"]:
+            raise AssertionError(f"evaluate TKR_TIMING=1 printed {times}")
+        acc[model_dir] = np.array(lines[0].split(",")[1:], float)
+        phase("train_layout_evaluate", model=os.path.basename(model_dir),
+              wall_s=f"{wall:.3f}", csv=lines[0], gpu=gpu,
+              **{f"timing_{n}": t for n, t in times.items()})
+    launches = fused_score_topk.launches
+    trained, base = acc[out][-1], acc[os.path.join(root, "bpr0")][-1]
+    phase("train_layout_accuracy", batch=8192, trained_at_30=trained,
+          untrained_at_30=base, k1_launches=launches, gpu=gpu)
+    if launches <= 0:
+        raise AssertionError("the fused layout's tables never went through "
+                             "K1")
+    if not trained > base:
+        raise AssertionError(f"trained accuracy@30 {trained} <= untrained "
+                             f"{base}")
+    return launches
+
+
 def serve_latency(root, dev):
     """CUDA-event medians of one served batch per method (the device time
     of ``recommend_async``; ``hybrid`` includes its host sync) at 256 and
@@ -2064,6 +2285,7 @@ def main() -> int:
             raise AssertionError("the trained tables never went through K1 "
                                  "or K2")
         train_rate(dev, root)
+        t_launches += train_layout(dev, root)
         c_launches, dirs, counts, feat = content_path(dev, root)
         if c_launches <= 0:
             raise AssertionError("the content models' tables never went "

@@ -7,6 +7,11 @@ Tolerances:
   products in different orders, so rtol 1e-5 / atol 1e-6;
 - a chunk of steps: those differences pass through RMSProp's division by
   sqrt(acc), so after four steps the tables agree to rtol 1e-4 / atol 1e-6;
+- the fused layout's chunk against JAX's own fused ``_chunk_impl``: rtol
+  2e-5 / atol 1e-7 and the loss to rtol 1e-5, the tolerance of JAX's test
+  of its two layouts (tests/test_models.py:366-374), at its size and step
+  size (lr 1e-3); the port's two layouts run the same torch ops on the
+  same rows and are held to the same tolerance;
 - ``.dat`` files hold six decimals, so a table read back from one is within
   5e-7 (plus an fp32 ulp) of the trained table; ``checkpoint.npz`` is
   binary and exact;
@@ -30,13 +35,22 @@ from topk_rec_tpu.checkpoint import CheckpointManager as JaxCheckpoints
 from topk_rec_tpu.data.dataset import Interactions, synthetic_interactions
 from topk_rec_tpu.eval.protocol import evaluate_oracle
 from topk_rec_tpu.models import BPR as JaxBPR
+from topk_rec_tpu.models import bpr as jbpr
 from topk_rec_tpu.models.bpr import _pairwise_loss as jax_loss
+from topk_rec_tpu.ops import sampling as jsampling
 from topk_rec_tpu.ops import sparse_update as jsu
 from topk_rec_torch.checkpoint import CheckpointManager, OrbaxCheckpointError
 from topk_rec_torch.data import Interactions as PortInteractions
 from topk_rec_torch.interop import bpr_from_jax, bpr_to_jax
 from topk_rec_torch.models import BPR
-from topk_rec_torch.models.bpr import BPRTables, _pairwise_loss, run_chunk
+from topk_rec_torch.models import bpr as tbpr
+from topk_rec_torch.models.bpr import (
+    BPRTables,
+    _pairwise_loss,
+    fused_layout,
+    run_chunk,
+    run_chunk_fused,
+)
 
 DAT_TOL = dict(rtol=0, atol=6e-7)
 
@@ -158,28 +172,170 @@ def test_one_chunk_equals_jax_step(small_inter, mode):
                                        atol=1e-6, err_msg=name)
 
 
-def test_crash_resume_reproduces_uninterrupted_run(small_inter, tmp_path):
+FUSED_HYPER = dict(lambda_b=1e-4, lr=1e-3)  # tests/test_models.py:347-348
+
+
+@pytest.fixture(scope="module")
+def fused_inter():
+    """tests/test_models.py:346: 120 users x 80 items, 2,000 pairs."""
+    return synthetic_interactions(120, 80, 2000, seed=3)
+
+
+def _fused_state(n_u, n_i, k):
+    """Tables and non-zero accumulators, the item bias non-zero too."""
+    params = {"ue": _rows(0, n_u, k), "ie": _rows(1, n_i, k),
+              "ib": _rows(2, n_i, 1)[:, 0]}
+    ms = {"ue": np.abs(_rows(3, n_u, k, 1e-4)),
+          "ie": np.abs(_rows(4, n_i, k, 1e-4)),
+          "ib": np.abs(_rows(5, n_i, 1, 1e-4))[:, 0]}
+    return params, ms
+
+
+def _tables(params, ms):
+    """BPRTables holding copies of ``params`` and ``ms`` (a chunk updates
+    them in place, and ``torch.from_numpy`` would alias the arrays)."""
+    tables = BPRTables(*(torch.tensor(params[n]) for n in ("ue", "ie", "ib")))
+    tables.load(ms=ms)
+    return tables
+
+
+def _watch_user_bias(monkeypatch, n_users, k):
+    """Record, after every RMSProp update of a fused table, its user rows'
+    bias column and that of the accumulator."""
+    seen = []
+    apply = tbpr.apply_planned_rmsprop
+
+    def watched(table, acc, *args):
+        out = apply(table, acc, *args)
+        if table.shape[1] == k + 1 and table.shape[0] > n_users:
+            seen.append(torch.cat([table[:n_users, k], acc[:n_users, k]]))
+        return out
+
+    monkeypatch.setattr(tbpr, "apply_planned_rmsprop", watched)
+    return seen
+
+
+@pytest.mark.parametrize("mode", ["l2", "l1"])
+def test_fused_chunk_equals_jax_fused_chunk(fused_inter, monkeypatch, mode):
+    """Four steps of JAX's own ``_chunk_impl(fused_tables=True)`` and the
+    port's fused chunk on the same tables, accumulators and triplets."""
+    k, steps, batch = 8, 4, 64
+    n_u, n_i = fused_inter.n_users, fused_inter.n_items
+    model = BPR(k=k, mode=mode, device="cpu", **FUSED_HYPER)
+    model.set_interactions(_port(fused_inter))
+    u, i, j = model.sample_chunk(torch.Generator().manual_seed(4), steps,
+                                 batch)
+    hyper = model.hyper()
+    params, ms = _fused_state(n_u, n_i, k)
+
+    def fixed_triplets(key, user_rows, flat_pos, pos_bitmap, n, n_items,
+                       k_candidates):
+        assert n == steps * batch and n_items == n_i
+        return tuple(jnp.asarray(t.reshape(-1).numpy()) for t in (u, i, j))
+
+    # _chunk_impl imports the sampler when it is called (bpr.py:134)
+    monkeypatch.setattr(jsampling, "_sample_triplets", fixed_triplets)
+    dummy = jnp.zeros(1, jnp.int32)
+    want_p, want_ms, want_loss = jbpr._chunk_impl(
+        {n: jnp.asarray(v) for n, v in params.items()},
+        {n: jnp.asarray(v) for n, v in ms.items()},
+        jax.random.PRNGKey(0), dummy, dummy, dummy, hyper, batch, n_i, 2,
+        steps, mode, fused_tables=True)
+
+    seen = _watch_user_bias(monkeypatch, n_u, k)
+    tables = _tables(params, ms)
+    loss = run_chunk_fused(tables, u, i, j, hyper, mode)
+    assert len(seen) == steps and not any(c.any() for c in seen)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    for got, want in ((tables.params(), want_p), (tables.ms(), want_ms)):
+        for name in ("ue", "ie", "ib"):
+            np.testing.assert_allclose(got[name].numpy(),
+                                       np.asarray(want[name]), rtol=2e-5,
+                                       atol=1e-7, err_msg=name)
+
+
+def test_fused_equals_separate(fused_inter, monkeypatch):
+    """The port's two layouts on the same triplets, over two chunks; the
+    fused table's user bias column and its accumulator stay exactly 0."""
+    k, steps, batch = 8, 4, 64
+    params, ms = _fused_state(fused_inter.n_users, fused_inter.n_items, k)
+    model = BPR(k=k, device="cpu", **FUSED_HYPER)
+    model.set_interactions(_port(fused_inter))
+    gen = torch.Generator().manual_seed(5)
+    chunks = [model.sample_chunk(gen, steps, batch) for _ in range(2)]
+    seen = _watch_user_bias(monkeypatch, fused_inter.n_users, k)
+    out = []
+    for chunk in (run_chunk, run_chunk_fused):
+        tables = _tables(params, ms)
+        loss = sum(float(chunk(tables, *c, model.hyper(), "l2"))
+                   for c in chunks)
+        out.append((tables, loss))
+    (sep, l_sep), (fus, l_fus) = out
+    assert len(seen) == 2 * steps and not any(c.any() for c in seen)
+    np.testing.assert_allclose(l_fus, l_sep, rtol=1e-5)
+    for got, want in ((fus.params(), sep.params()), (fus.ms(), sep.ms())):
+        for name in ("ue", "ie", "ib"):
+            np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
+                                       rtol=2e-5, atol=1e-7, err_msg=name)
+
+
+@pytest.mark.parametrize("layout", ["auto", "separate", "fused"])
+@pytest.mark.parametrize("batch", [2047, 2048])
+@pytest.mark.parametrize("n_rows", [262_144, 262_145])
+def test_auto_layout_rule(layout, batch, n_rows):
+    """The port's choice against JAX's expression (bpr.py:515-518) with
+    JAX's own constants."""
+    want = layout == "fused" or (
+        layout == "auto" and batch >= jbpr._FUSED_LAYOUT_MIN_BATCH
+        and n_rows <= jbpr._FUSED_LAYOUT_MAX_ROWS)
+    assert fused_layout(layout, batch, n_rows) == want
+    model = BPR(k=4, table_layout=layout, device="cpu")
+    model.n_users, model.n_items = 1, n_rows - 1
+    assert model.picks_fused(batch) == want
+
+
+def _resume_equals_straight(inter, tmp_path, batch):
     """Four epochs straight against two epochs, then a resumed run to four:
     the same tables (per-epoch generators, accumulators restored)."""
     def make():
         m = BPR(k=6, lr=0.05, seed=11, device="cpu")
-        m.set_interactions(_port(small_inter))
+        m.set_interactions(_port(inter))
         return m
 
     straight = make()
-    straight.train(epochs=4, batch_size=64, scan_steps=4, verbose=False)
+    straight.train(epochs=4, batch_size=batch, scan_steps=4, verbose=False)
     d = str(tmp_path / "ckpt")
-    make().train(epochs=2, batch_size=64, scan_steps=4, verbose=False,
+    make().train(epochs=2, batch_size=batch, scan_steps=4, verbose=False,
                  ckpt_dir=d)
     assert CheckpointManager(d).steps() == [1, 2]
     resumed = make()
-    resumed.train(epochs=4, batch_size=64, scan_steps=4, verbose=False,
+    resumed.train(epochs=4, batch_size=batch, scan_steps=4, verbose=False,
                   ckpt_dir=d)
     for a, b in ((resumed.fue, straight.fue), (resumed.fie, straight.fie),
                  (resumed.fib, straight.fib)):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(resumed.tables.ms_it.numpy(),
                                   straight.tables.ms_it.numpy())
+
+
+def test_crash_resume_reproduces_uninterrupted_run(small_inter, tmp_path):
+    _resume_equals_straight(small_inter, tmp_path, 64)
+
+
+def _refuse(*args):
+    raise AssertionError("the separate layout ran")
+
+
+def test_crash_resume_fused_reproduces_uninterrupted_run(small_inter,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """The resume check at batch 2,048, where ``auto`` trains on the fused
+    table: the separate chunk refuses to run."""
+    model = BPR(k=6, device="cpu")
+    model.set_interactions(_port(small_inter))
+    assert model.picks_fused(2048)
+    monkeypatch.setattr(tbpr, "run_chunk", _refuse)
+    _resume_equals_straight(small_inter, tmp_path, 2048)
 
 
 def test_checkpoint_manager_format_and_gc(tmp_path):
@@ -296,8 +452,8 @@ def test_interop_state_roundtrip(small_inter):
 
 
 def test_validation():
-    with pytest.raises(NotImplementedError, match="fused"):
-        BPR(k=4, table_layout="fused", device="cpu")
+    assert BPR(k=4, table_layout="fused", device="cpu").table_layout == \
+        "fused"
     with pytest.raises(ValueError, match="table_layout"):
         BPR(k=4, table_layout="dense", device="cpu")
     with pytest.raises(ValueError, match="membership"):

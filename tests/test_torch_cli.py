@@ -14,6 +14,7 @@ scores agree within 1e-5 (one unit of the sixth printed decimal).
 import json
 import os
 import pickle
+import re
 
 import numpy as np
 import pytest
@@ -100,6 +101,39 @@ def test_evaluate_csv_byte_identical(fold_dir, model_dir, capsys, engine,
     got = capsys.readouterr().out
     assert got == want
     assert got.startswith("im,") and "\nom," in got
+
+
+TIMING_PHASES = ["fold_parse", "dat_parse", "im_inputs", "im_eval",
+                 "om_inputs", "om_eval", "total"]
+
+
+def _timing_lines(err):
+    return [ln for ln in err.splitlines() if ln.startswith("timing: ")]
+
+
+@pytest.mark.parametrize("timing", [True, False])
+def test_evaluate_tkr_timing_phases(fold_dir, model_dir, capsys, monkeypatch,
+                                    timing):
+    """TKR_TIMING=1 prints JAX's phase names in JAX's order on stderr, one
+    ``timing: <name> <s>s`` line each; unset, no timing line. The CSV on
+    stdout is the same either way."""
+    if timing:
+        monkeypatch.setenv("TKR_TIMING", "1")
+    else:
+        monkeypatch.delenv("TKR_TIMING", raising=False)
+    args = ["evaluate", "-d", str(fold_dir), "-m", str(model_dir), "-f", "0",
+            "-sl", "im", "om"]
+    assert jax_cli.main(args) == 0
+    want = capsys.readouterr()
+    assert torch_cli.main(args + ["--device", "cpu"]) == 0
+    got = capsys.readouterr()
+    assert got.out == want.out and got.out.startswith("im,")
+    lines = _timing_lines(got.err)
+    names = [ln.split()[1] for ln in lines]
+    assert names == [ln.split()[1] for ln in _timing_lines(want.err)]
+    assert names == (TIMING_PHASES if timing else [])
+    for ln in lines:
+        assert re.fullmatch(r"timing: \w+ \d+\.\d\ds", ln), ln
 
 
 # with 50 items, approx_max_k does not reduce (XLA reduces only rows of

@@ -34,6 +34,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -177,8 +178,6 @@ def _train_pairwise_distributed(model, mesh, cfg: TrainConfig) -> None:
     trainers (cli.py:228-263): tables row-sharded over "mp", each batch
     split over the ranks. Every rank draws the same chunks from the epoch's
     generator; at the end every rank holds the full tables."""
-    import time
-
     from .models.bpr import stream_generator
     from .parallel import DistributedBPRTrainer, DistributedVBPRTrainer
 
@@ -361,9 +360,19 @@ def cmd_train(args) -> int:
 def cmd_evaluate(args) -> int:
     from .eval.device import DeviceEvaluator
 
+    # TKR_TIMING=1: the wall time of each phase on stderr (cli.py:136-181)
+    timing = os.environ.get("TKR_TIMING") == "1"
+    marks = [("start", time.time())]
+
+    def mark(name):
+        if timing:
+            marks.append((name, time.time()))
+
     device = _device(args.device)
     inter, uids, iids = _load_fold(args.data, args.fold)
+    mark("fold_parse")
     umat, vmat, bmat = _read_model(args.model, uids, iids)
+    mark("dat_parse")
     ev = DeviceEvaluator(
         inter.seen_bitmap, step=args.step, total=args.total,
         user_chunk=args.user_chunk, use_kernel=args.engine == "kernel",
@@ -374,8 +383,18 @@ def cmd_evaluate(args) -> int:
         cand_ids, likes = _scenario_inputs(
             args.data, args.fold, scenario, uids, iids
         )
+        mark(f"{scenario}_inputs")
         res = ev.evaluate(umat, vmat, bmat, cand_ids, likes)
-        print(scenario + "".join(",%.6f" % a for a in res.accuracy))
+        # formatting reads the accuracies on the host: the card is done
+        line = scenario + "".join(",%.6f" % a for a in res.accuracy)
+        mark(f"{scenario}_eval")
+        print(line)
+    if timing:
+        prev = marks[0][1]
+        for name, t in marks[1:]:
+            print(f"timing: {name} {t - prev:.2f}s", file=sys.stderr)
+            prev = t
+        print(f"timing: total {prev - marks[0][1]:.2f}s", file=sys.stderr)
     return 0
 
 

@@ -18,12 +18,19 @@ same triplets:
   with ``torch.autograd.grad`` on the gathered rows, sums them per row with
   ``index_add_`` and applies RMSProp in place.
 
+:func:`run_chunk_fused` runs the same steps on one [n_users + n_items,
+k + 1] table, user rows first with a bias column held at 0 (bpr.py:172-240):
+one plan, one gather, one ``index_add_`` and one RMSProp update per step
+where the separate tables take two of each. :meth:`BPR.train` picks it as
+the JAX package does (bpr.py:515-518): when asked, or under ``auto`` for a
+batch of at least :data:`_FUSED_LAYOUT_MIN_BATCH` on at most
+:data:`_FUSED_LAYOUT_MAX_ROWS` rows. Both layouts compute the same
+arithmetic on disjoint row ranges, and the sampler draws the same triplets
+under either.
+
 The BPR step has no Pallas kernel in the JAX package (it is XLA gathers,
 segment sums and scatters), so here it is plain PyTorch: a few dozen small
-launches per step, whose overhead sets the pace at batch 256. The JAX
-package's fused [n_users + n_items, k + 1] layout (bpr.py:172-240, 331-346)
-was a trade measured on the TPU and is not ported; ``table_layout="fused"``
-raises.
+launches per step, whose overhead sets the pace at batch 256.
 
 Random streams: the init draws come from a generator of their own, and each
 epoch from a generator derived from (seed, epoch), so a run resumed at an
@@ -40,6 +47,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..checkpoint import CheckpointManager
@@ -159,13 +167,85 @@ def run_chunk(
     return torch.stack(losses).sum()
 
 
+def run_chunk_fused(
+    tables: BPRTables,
+    u_steps: torch.Tensor,   # [S, B] user rows per step
+    i_steps: torch.Tensor,   # [S, B] positive items
+    j_steps: torch.Tensor,   # [S, B] negative items
+    hyper: Dict[str, float],
+    mode: str,
+) -> torch.Tensor:
+    """:func:`run_chunk` on one [n_users + n_items, k + 1] table built for
+    the chunk (bpr.py:172-240); the result is written back into ``tables``.
+
+    The user rows' bias column is never read by the loss, so its gradient
+    is 0 and RMSProp keeps it, and its accumulator, at exactly 0."""
+    lu, li, lj, lb, lr = (hyper[n] for n in ("lu", "li", "lj", "lb", "lr"))
+    k = tables.k
+    n_users = tables.ue.shape[0]
+    b = u_steps.shape[1]
+    uniq, seg = plan_sparse_updates(
+        torch.cat([u_steps, i_steps + n_users, j_steps + n_users], 1))
+    tbl, mtbl = fuse_tables(tables)
+    losses = []
+    for s in range(u_steps.shape[0]):
+        rows, acc = planned_rows(tbl, mtbl, uniq[s])
+        with torch.enable_grad():
+            pu = rows[seg[s, :b], :k].requires_grad_()
+            pit = rows[seg[s, b:2 * b]].requires_grad_()
+            pjt = rows[seg[s, 2 * b:]].requires_grad_()
+            loss = _pairwise_loss(pu, pit, pjt, lu, li, lj, lb, mode, k)
+            gu, gi, gj = torch.autograd.grad(loss, (pu, pit, pjt))
+        # in the plan's order [u | i | j], the users' bias gradient 0
+        agg = torch.zeros_like(rows).index_add_(
+            0, seg[s], torch.cat([F.pad(gu, (0, 1)), gi, gj]))
+        apply_planned_rmsprop(tbl, mtbl, uniq[s], rows, acc, agg, lr)
+        losses.append(loss.detach())
+    unfuse_tables(tables, tbl, mtbl)
+    return torch.stack(losses).sum()
+
+
+def fuse_tables(tables: BPRTables) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused table [ue ‖ 0 ; ie ‖ ib] and its accumulator, new copies
+    of ``tables``' buffers."""
+    return (torch.cat([F.pad(tables.ue, (0, 1)), tables.iet]),
+            torch.cat([F.pad(tables.ms_u, (0, 1)), tables.ms_it]))
+
+
+def unfuse_tables(tables: BPRTables, tbl: torch.Tensor,
+                  mtbl: torch.Tensor) -> None:
+    """Copy a fused table and its accumulator back into ``tables``."""
+    n_users, k = tables.ue.shape
+    tables.ue.copy_(tbl[:n_users, :k])
+    tables.iet.copy_(tbl[n_users:])
+    tables.ms_u.copy_(mtbl[:n_users, :k])
+    tables.ms_it.copy_(mtbl[n_users:])
+
+
+# The JAX package's rule for the fused layout under "auto"
+# (topk_rec_tpu/models/bpr.py:337, 346, 515-518), under its names: a batch
+# of at least this many triplets ...
+_FUSED_LAYOUT_MIN_BATCH = 2048
+# ... on a table of at most this many rows, since the fused table is built
+# anew (a copy of both tables) for every chunk.
+_FUSED_LAYOUT_MAX_ROWS = 262_144
+
+
+def fused_layout(table_layout: str, batch_size: int, n_rows: int) -> bool:
+    """Whether ``table_layout`` runs the fused table for ``batch_size``
+    triplets per step on ``n_rows`` = n_users + n_items rows."""
+    return table_layout == "fused" or (
+        table_layout == "auto" and batch_size >= _FUSED_LAYOUT_MIN_BATCH
+        and n_rows <= _FUSED_LAYOUT_MAX_ROWS)
+
+
 class BPR(Recommender):
     """Bayesian Personalized Ranking with device-side sampling.
 
     Defaults mirror reference single/bpr.py:20: lambda_u = lambda_i =
     2.5e-3, lambda_j = 2.5e-4, lambda_b = 0, lr = 1e-4, mode "l2" or "l1".
     ``membership`` picks the sampler's store (``ops/sampling.py``);
-    ``table_layout`` accepts "auto" and "separate" (the one layout here).
+    ``table_layout`` is "separate", "fused" or "auto" (:func:`fused_layout`).
     """
 
     def __init__(
@@ -190,10 +270,6 @@ class BPR(Recommender):
             raise ValueError(
                 f"table_layout must be auto|separate|fused, got "
                 f"{table_layout!r}")
-        if table_layout == "fused":
-            raise NotImplementedError(
-                "the fused [n_users + n_items, k + 1] table layout is not "
-                "ported; use table_layout='separate'")
         if membership not in ("auto", "bitmap", "sorted"):
             raise ValueError(
                 f"membership must be auto|bitmap|sorted, got {membership!r}")
@@ -250,11 +326,18 @@ class BPR(Recommender):
         return tuple(t.view(n_steps, batch_size)
                      for t in self.sampler(gen, n_steps * batch_size))
 
+    def picks_fused(self, batch_size: int) -> bool:
+        """Whether :meth:`train` runs the fused layout at ``batch_size``."""
+        return fused_layout(self.table_layout, batch_size,
+                            self.n_users + self.n_items)
+
     def train_chunk(self, gen: torch.Generator, n_steps: int,
-                    batch_size: int) -> torch.Tensor:
-        """Sample and run one chunk; the summed loss stays on the device."""
+                    batch_size: int, fused: bool = False) -> torch.Tensor:
+        """Sample and run one chunk, on the fused table if ``fused``; the
+        summed loss stays on the device."""
         u, i, j = self.sample_chunk(gen, n_steps, batch_size)
-        return run_chunk(self.tables, u, i, j, self.hyper(), self.mode)
+        chunk = run_chunk_fused if fused else run_chunk
+        return chunk(self.tables, u, i, j, self.hyper(), self.mode)
 
     def train(
         self,
@@ -299,18 +382,20 @@ class BPR(Recommender):
                 if verbose:
                     tprint(f"Resuming from checkpointed epoch {latest}")
         n_chunks = max(1, -(-batch_limit // scan_steps))
+        fused = self.picks_fused(batch_size)
         if verbose:
             tprint("Training parameters: lu=%.6f, li=%.6f, lj=%.6f, lb=%.6f"
                    % (self.lu, self.li, self.lj, self.lb))
             tprint("Learning rate is %.6f, regularization mode is %s"
                    % (self.lr, self.mode))
             tprint("Training for %d epochs of %d batches (batch %d, %d per "
-                   "chunk) on %s" % (epochs, n_chunks * scan_steps,
-                                     batch_size, scan_steps, self.device))
+                   "chunk) on %s, %s tables"
+                   % (epochs, n_chunks * scan_steps, batch_size, scan_steps,
+                      self.device, "fused" if fused else "separate"))
         for eid in range(start_epoch, epochs):
             t0 = time.time()
             gen = stream_generator(self.seed, eid, self.device)
-            losses = [self.train_chunk(gen, scan_steps, batch_size)
+            losses = [self.train_chunk(gen, scan_steps, batch_size, fused)
                       for _ in range(n_chunks)]
             total_loss = float(torch.stack(losses).sum())
             if verbose:
