@@ -346,6 +346,15 @@ def test_train_profile_dir_writes_a_trace(fold_dir, tmp_path):
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("cholesky" in n for n in names), sorted(names)[:20]
+    # BPR's chunk spans show in the trace too
+    assert torch_cli.main([
+        "train", "--model", "bpr", "-d", str(fold_dir), "-o",
+        str(tmp_path / "bpr"), "--k", "4", "--epochs", "1",
+        "--profile-dir", str(prof), "--device", "cpu"]) == 0
+    with open(prof / "trace.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert {"tkr.train.chunk", "tkr.train.sample", "tkr.train.sync",
+            "tkr.train.step", "tkr.train.grad"} <= names
 
 
 @pytest.fixture(scope="module")

@@ -7,7 +7,6 @@ Python one."""
 import dataclasses
 import os
 import pickle
-import time
 from datetime import datetime
 
 import numpy as np
@@ -196,42 +195,6 @@ def test_statelog_bytes_equal(monkeypatch, tmp_path):
     for name in ("settings.txt", "state.log"):
         assert (dirs[0] / name).read_bytes() == (dirs[1] / name).read_bytes()
     assert tstate.StateLog(None, settings).path is None
-
-
-def test_timer_and_throughput_behave_as_jax(monkeypatch):
-    """The copies of ``Timer`` and ``Throughput``: the same interface, and
-    on the real clock a positive elapsed time and rate; on one fake clock,
-    the same numbers as JAX's."""
-    from topk_rec_torch import profiling as tprof
-    from topk_rec_torch import utils as tutils
-    from topk_rec_tpu import utils as jutils
-    from topk_rec_tpu.utils import profiling as jprof
-
-    assert set(jutils.__all__) <= set(tutils.__all__)
-    assert tutils.Timer is tlog.Timer
-    got = {}
-    for timer, tput in ((tutils.Timer, tprof.Throughput),
-                        (jutils.Timer, jprof.Throughput)):
-        with timer() as t:
-            assert t.elapsed == 0.0
-            sum(range(10_000))
-        assert t.elapsed > 0
-        rate = tput()
-        rate.add(100)
-        rate.add(28)
-        sum(range(10_000))
-        assert rate.samples_per_sec > 0
-        clock = iter([10.0, 12.5, 20.0, 24.0, 30.0, 30.0])
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        with timer() as t:
-            pass
-        rate = tput()
-        rate.add(64)
-        got[timer.__module__] = (t.elapsed, rate.samples_per_sec)
-        rate.reset()
-        assert rate.samples_per_sec == 0.0
-        monkeypatch.undo()
-    assert got[tlog.__name__] == got[jlog.__name__] == (2.5, 16.0)
 
 
 def test_parser_reports_native_when_built(monkeypatch):

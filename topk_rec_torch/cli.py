@@ -32,6 +32,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -47,6 +48,7 @@ from .config import (
 )
 from .data import Interactions, load_id_map, read_dat
 from .eval.protocol import load_test_likes
+from .tracing import recording, span
 from .utils import tprint
 
 _EC = EvalConfig()
@@ -56,17 +58,15 @@ MODELS = ("bpr", "vbpr", "wmf", "cer", "dpm")  # the JAX CLI's choices
 PORTED_MODELS = ("bpr", "vbpr", "wmf", "cer", "dpm")
 CONTENT_MODELS = ("vbpr", "cer", "dpm")
 ENCODERS = ("mlp", "sdae")
+EVALUATE = "evaluate."  # the prefix of the spans of evaluate's phases
 
 
 def _load_fold(data_dir: str, fold: int):
-    uids = load_id_map(os.path.join(data_dir, "uid"))
-    iids = load_id_map(os.path.join(data_dir, "vid"))
-    inter, _, _ = Interactions.from_files(
+    return Interactions.from_files(
         os.path.join(data_dir, "uid"),
         os.path.join(data_dir, "vid"),
         os.path.join(data_dir, f"f{fold}tr.txt"),
     )
-    return inter, uids, iids
 
 
 def _scenario_inputs(data_dir: str, fold: int, scenario: str, uids, iids):
@@ -358,44 +358,51 @@ def cmd_train(args) -> int:
 
 
 def cmd_evaluate(args) -> int:
+    # TKR_TIMING=1: the wall time of each phase on stderr (cli.py:136-181),
+    # read from the phases' spans
+    timing = os.environ.get("TKR_TIMING") == "1"
+    with recording() if timing else contextlib.nullcontext() as rec:
+        _evaluate(args)
+    if timing:
+        phases = [(name[len(EVALUATE):], t) for name, t in rec
+                  if name.startswith(EVALUATE)]
+        for name, t in phases:
+            print(f"timing: {name} {t:.2f}s", file=sys.stderr)
+        print(f"timing: total {sum(t for _, t in phases):.2f}s",
+              file=sys.stderr)
+    return 0
+
+
+def _evaluate(args) -> None:
+    """The phases of ``evaluate``, one span each: ``fold_parse``,
+    ``dat_parse``, then ``<scenario>_inputs`` and ``<scenario>_eval`` per
+    scenario."""
     from .eval.device import DeviceEvaluator
 
-    # TKR_TIMING=1: the wall time of each phase on stderr (cli.py:136-181)
-    timing = os.environ.get("TKR_TIMING") == "1"
-    marks = [("start", time.time())]
-
-    def mark(name):
-        if timing:
-            marks.append((name, time.time()))
-
-    device = _device(args.device)
-    inter, uids, iids = _load_fold(args.data, args.fold)
-    mark("fold_parse")
-    umat, vmat, bmat = _read_model(args.model, uids, iids)
-    mark("dat_parse")
-    ev = DeviceEvaluator(
-        inter.seen_bitmap, step=args.step, total=args.total,
-        user_chunk=args.user_chunk, use_kernel=args.engine == "kernel",
-        want_rr=False,  # the CSV prints accuracy only (ref evaluate.py:113-117)
-        device=device,
-    )
+    with span(EVALUATE + "fold_parse"):
+        device = _device(args.device)
+        inter, uids, iids = _load_fold(args.data, args.fold)
+    with span(EVALUATE + "dat_parse"):
+        umat, vmat, bmat = _read_model(args.model, uids, iids)
+    ev = None
     for scenario in args.scenarios:
-        cand_ids, likes = _scenario_inputs(
-            args.data, args.fold, scenario, uids, iids
-        )
-        mark(f"{scenario}_inputs")
-        res = ev.evaluate(umat, vmat, bmat, cand_ids, likes)
-        # formatting reads the accuracies on the host: the card is done
-        line = scenario + "".join(",%.6f" % a for a in res.accuracy)
-        mark(f"{scenario}_eval")
+        with span(f"{EVALUATE}{scenario}_inputs"):
+            if ev is None:
+                ev = DeviceEvaluator(
+                    inter.seen_bitmap, step=args.step, total=args.total,
+                    user_chunk=args.user_chunk,
+                    use_kernel=args.engine == "kernel",
+                    # the CSV prints accuracy only (ref evaluate.py:113-117)
+                    want_rr=False, device=device,
+                )
+            cand_ids, likes = _scenario_inputs(
+                args.data, args.fold, scenario, uids, iids
+            )
+        with span(f"{EVALUATE}{scenario}_eval"):
+            res = ev.evaluate(umat, vmat, bmat, cand_ids, likes)
+            # formatting reads the accuracies on the host: the card is done
+            line = scenario + "".join(",%.6f" % a for a in res.accuracy)
         print(line)
-    if timing:
-        prev = marks[0][1]
-        for name, t in marks[1:]:
-            print(f"timing: {name} {t - prev:.2f}s", file=sys.stderr)
-            prev = t
-        print(f"timing: total {prev - marks[0][1]:.2f}s", file=sys.stderr)
-    return 0
 
 
 FUSE_STRATEGIES = ("average", "rank", "error", "svm", "bpr")

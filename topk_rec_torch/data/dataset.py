@@ -11,6 +11,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from ..tracing import span
 from .io import load_id_map, parse_ratings
 
 
@@ -67,9 +68,10 @@ class Interactions:
         cls, uid_file: str, iid_file: str, tr_file: str
     ) -> Tuple["Interactions", Dict[str, int], Dict[str, int]]:
         """Load a fold from reference-format flat files."""
-        uids = load_id_map(uid_file)
-        iids = load_id_map(iid_file)
-        pos_u, pos_i, seen_u, seen_i = parse_ratings(tr_file, uids, iids)
+        with span("io.fold"):
+            uids = load_id_map(uid_file)
+            iids = load_id_map(iid_file)
+            pos_u, pos_i, seen_u, seen_i = parse_ratings(tr_file, uids, iids)
         inter = cls(len(uids), len(iids), pos_u, pos_i, seen_u, seen_i)
         return inter, uids, iids
 

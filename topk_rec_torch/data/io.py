@@ -28,6 +28,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..tracing import span
+
 
 def load_id_map(path: str) -> Dict[str, int]:
     """Map raw id string -> dense index (line order)."""
@@ -92,41 +94,43 @@ def parse_ratings(
 def read_dat(path: str, ids: Optional[Dict[str, int]] = None) -> np.ndarray:
     """Read a space-separated text matrix (``final-*.dat``). Row order is
     id-file order, so ``ids`` only validates the row count."""
-    native = _native_lib()
-    if native is not None:
-        flat, n_rows, n_cols = native.parse_dat(path)
-        if n_rows == 0:
-            return np.zeros((0, 0), dtype=np.float32)
-    else:
-        with open(path, "r") as f:
-            content = f.read()
-        lines = content.splitlines()
-        while lines and not lines[-1].strip():
-            lines.pop()
-        n_rows = len(lines)
-        if n_rows == 0:
-            return np.zeros((0, 0), dtype=np.float32)
-        n_cols = len(lines[0].split())
-        try:
-            flat = np.array(content.split(), dtype=np.float32)
-        except ValueError as e:
+    with span("io.read_dat"):
+        native = _native_lib()
+        if native is not None:
+            flat, n_rows, n_cols = native.parse_dat(path)
+            if n_rows == 0:
+                return np.zeros((0, 0), dtype=np.float32)
+        else:
+            with open(path, "r") as f:
+                content = f.read()
+            lines = content.splitlines()
+            while lines and not lines[-1].strip():
+                lines.pop()
+            n_rows = len(lines)
+            if n_rows == 0:
+                return np.zeros((0, 0), dtype=np.float32)
+            n_cols = len(lines[0].split())
+            try:
+                flat = np.array(content.split(), dtype=np.float32)
+            except ValueError as e:
+                raise ValueError(
+                    f"{path}: malformed .dat — non-numeric value in the "
+                    f"matrix ({e})"
+                ) from None
+        if n_cols == 0 or flat.size != n_rows * n_cols:
             raise ValueError(
-                f"{path}: malformed .dat — non-numeric value in the matrix "
-                f"({e})"
-            ) from None
-    if n_cols == 0 or flat.size != n_rows * n_cols:
-        raise ValueError(
-            f"{path}: malformed .dat — expected a rectangular "
-            f"space-separated float matrix ({n_rows} rows x {n_cols} cols "
-            f"from the first row = {n_rows * n_cols} values, found "
-            f"{flat.size})"
-        )
-    mat = flat.reshape(n_rows, n_cols)
-    if ids is not None and len(ids) != n_rows:
-        raise ValueError(
-            f"{path}: expected {len(ids)} rows from id map, found {n_rows}"
-        )
-    return mat
+                f"{path}: malformed .dat — expected a rectangular "
+                f"space-separated float matrix ({n_rows} rows x {n_cols} "
+                f"cols from the first row = {n_rows * n_cols} values, "
+                f"found {flat.size})"
+            )
+        mat = flat.reshape(n_rows, n_cols)
+        if ids is not None and len(ids) != n_rows:
+            raise ValueError(
+                f"{path}: expected {len(ids)} rows from id map, found "
+                f"{n_rows}"
+            )
+        return mat
 
 
 def write_dat(path: str, mat: np.ndarray) -> None:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tracing import span
 from ..ops.topk_fused import (
     NEG_INF,
     bitmap_tensor,
@@ -100,27 +101,29 @@ def _chunked(U, v_dev, b_dev, bm_dev, rr_dev, n_cand, k, user_chunk,
     v_step = kernel_table(v_dev) if pad else v_dev
     d = U.shape[1]
     vals, idxs, sas = [], [], []
-    for start in range(0, U.shape[0], user_chunk):
-        stop = min(start + user_chunk, U.shape[0])
-        if pad:
-            u_host = np.zeros((stop - start, kernel_width(d)), np.float32)
-            u_host[:, :d] = U[start:stop]
-            u_step = _to_dev(u_host, dev)
-            u_dev = u_step[:, :d]
-        else:
-            u_dev = u_step = _to_dev(U[start:stop], dev)
-        v, i = step(u_step, v_step, b_dev, bm_dev[start:stop], n_cand, k)
-        vals.append(v)
-        idxs.append(i.to(torch.int32))
+    with span("eval.score"):
+        for start in range(0, U.shape[0], user_chunk):
+            stop = min(start + user_chunk, U.shape[0])
+            if pad:
+                u_host = np.zeros((stop - start, kernel_width(d)),
+                                  np.float32)
+                u_host[:, :d] = U[start:stop]
+                u_step = _to_dev(u_host, dev)
+                u_dev = u_step[:, :d]
+            else:
+                u_dev = u_step = _to_dev(U[start:stop], dev)
+            v, i = step(u_step, v_step, b_dev, bm_dev[start:stop], n_cand, k)
+            vals.append(v)
+            idxs.append(i.to(torch.int32))
+            if rr_dev is not None:
+                sas.append(_raw_rank_scores(
+                    u_dev, v_dev, b_dev, rr_dev[start:stop], i, n_cand
+                ))
+    with span("eval.fetch"):
+        out = [torch.cat(vals).cpu().numpy(), torch.cat(idxs).cpu().numpy()]
         if rr_dev is not None:
-            sas.append(_raw_rank_scores(
-                u_dev, v_dev, b_dev, rr_dev[start:stop], i, n_cand
-            ))
-    out_vals = torch.cat(vals).cpu().numpy()
-    out_idx = torch.cat(idxs).cpu().numpy()
-    if rr_dev is None:
-        return out_vals, out_idx
-    return out_vals, out_idx, torch.cat(sas).cpu().numpy()
+            out.append(torch.cat(sas).cpu().numpy())
+    return tuple(out)
 
 
 def topk_unseen(
@@ -230,35 +233,39 @@ def _count_hits(
     eval/device.py:239-285: hits bucket by unseen rank (reference
     evaluate.py:100); reciprocal ranks by raw rank ``unseen rank +
     seen_above`` with value 1/(t+1) (reference utils.py:116-119)."""
-    interval = total // step
-    users = np.array([u for u, l in likes.items() if len(l) > 0], dtype=np.int64)
-    count = sum(len(l) for l in likes.values())
-    if users.size == 0:
-        return EvalResult(
-            hits=np.zeros(interval), rr=np.zeros(interval), count=count
-        )
-    n_words = (n_cand + 31) // 32
-    like_bm = np.zeros((users.size, n_words), dtype=np.uint32)
-    for row, u in enumerate(users):
-        for c in likes[int(u)]:
-            like_bm[row, c >> 5] |= np.uint32(1) << np.uint32(c & 31)
-    idx = top_idx[users]                       # [nu, k]
-    valid = np.isfinite(top_vals[users])
-    words = like_bm[np.arange(users.size)[:, None], idx >> 5]
-    hit = ((words >> (idx & 31).astype(np.uint32)) & 1).astype(bool) & valid
-    k_eff = idx.shape[1]
-    hits = np.zeros(interval)
-    for j in range(interval):
-        cut = min((j + 1) * step, k_eff)
-        hits[j] = hit[:, :cut].sum()
-    rrs = np.zeros(interval)
-    if seen_above is not None:
-        raw = np.arange(k_eff)[None, :] + seen_above[users]  # raw rank t
-        rr_vals = np.where(hit, 1.0 / (raw + 1.0), 0.0)
-        bucket = raw // step
+    with span("eval.count_hits"):
+        interval = total // step
+        users = np.array([u for u, l in likes.items() if len(l) > 0],
+                         dtype=np.int64)
+        count = sum(len(l) for l in likes.values())
+        if users.size == 0:
+            return EvalResult(
+                hits=np.zeros(interval), rr=np.zeros(interval), count=count
+            )
+        n_words = (n_cand + 31) // 32
+        like_bm = np.zeros((users.size, n_words), dtype=np.uint32)
+        with span("eval.like_bitmap"):
+            for row, u in enumerate(users):
+                for c in likes[int(u)]:
+                    like_bm[row, c >> 5] |= np.uint32(1) << np.uint32(c & 31)
+        idx = top_idx[users]                       # [nu, k]
+        valid = np.isfinite(top_vals[users])
+        words = like_bm[np.arange(users.size)[:, None], idx >> 5]
+        hit = (((words >> (idx & 31).astype(np.uint32)) & 1).astype(bool)
+               & valid)
+        k_eff = idx.shape[1]
+        hits = np.zeros(interval)
         for j in range(interval):
-            rrs[j] = rr_vals[bucket <= j].sum()
-    return EvalResult(hits=hits, rr=rrs, count=count)
+            cut = min((j + 1) * step, k_eff)
+            hits[j] = hit[:, :cut].sum()
+        rrs = np.zeros(interval)
+        if seen_above is not None:
+            raw = np.arange(k_eff)[None, :] + seen_above[users]  # raw rank t
+            rr_vals = np.where(hit, 1.0 / (raw + 1.0), 0.0)
+            bucket = raw // step
+            for j in range(interval):
+                rrs[j] = rr_vals[bucket <= j].sum()
+        return EvalResult(hits=hits, rr=rrs, count=count)
 
 
 def evaluate_scores_device(

@@ -13,6 +13,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..tracing import span
+
 
 @dataclass
 class EvalResult:
@@ -36,7 +38,7 @@ def load_test_likes(
     entries with like == 1 whose item is in the scenario's candidate list
     (reference evaluate.py:84-93)."""
     likes: Dict[int, List[int]] = {}
-    with open(test_file, "r") as f:
+    with span("io.test_likes"), open(test_file, "r") as f:
         for line in f:
             terms = line.strip().split(",")
             uid = terms[0]

@@ -57,6 +57,7 @@ from ..ops.sparse_update import (
     plan_sparse_updates,
     planned_rows,
 )
+from ..tracing import span
 from ..utils import tprint
 from .base import Recommender
 
@@ -146,24 +147,28 @@ def run_chunk(
     uniq_ij, seg_ij = plan_sparse_updates(torch.cat([i_steps, j_steps], 1))
     losses = []
     for s in range(u_steps.shape[0]):
-        # one gather of unique rows per table; the rows of each occurrence
-        # come from those (bpr.py:256-268)
-        rows_u, acc_u = planned_rows(tables.ue, tables.ms_u, uniq_u[s])
-        rows_ij, acc_ij = planned_rows(tables.iet, tables.ms_it, uniq_ij[s])
-        with torch.enable_grad():
-            pu = rows_u[seg_u[s]].requires_grad_()
-            pit = rows_ij[seg_ij[s, :b]].requires_grad_()
-            pjt = rows_ij[seg_ij[s, b:]].requires_grad_()
-            loss = _pairwise_loss(pu, pit, pjt, lu, li, lj, lb, mode, k)
-            gu, gi, gj = torch.autograd.grad(loss, (pu, pit, pjt))
-        agg_u = torch.zeros_like(rows_u).index_add_(0, seg_u[s], gu)
-        agg_ij = torch.zeros_like(rows_ij).index_add_(
-            0, seg_ij[s], torch.cat([gi, gj]))
-        apply_planned_rmsprop(tables.ue, tables.ms_u, uniq_u[s], rows_u,
-                              acc_u, agg_u, lr)
-        apply_planned_rmsprop(tables.iet, tables.ms_it, uniq_ij[s], rows_ij,
-                              acc_ij, agg_ij, lr)
-        losses.append(loss.detach())
+        with span("train.step"):
+            # one gather of unique rows per table; the rows of each
+            # occurrence come from those (bpr.py:256-268)
+            rows_u, acc_u = planned_rows(tables.ue, tables.ms_u, uniq_u[s])
+            rows_ij, acc_ij = planned_rows(tables.iet, tables.ms_it,
+                                           uniq_ij[s])
+            with torch.enable_grad():
+                pu = rows_u[seg_u[s]].requires_grad_()
+                pit = rows_ij[seg_ij[s, :b]].requires_grad_()
+                pjt = rows_ij[seg_ij[s, b:]].requires_grad_()
+                with span("train.grad"):
+                    loss = _pairwise_loss(pu, pit, pjt, lu, li, lj, lb,
+                                          mode, k)
+                    gu, gi, gj = torch.autograd.grad(loss, (pu, pit, pjt))
+            agg_u = torch.zeros_like(rows_u).index_add_(0, seg_u[s], gu)
+            agg_ij = torch.zeros_like(rows_ij).index_add_(
+                0, seg_ij[s], torch.cat([gi, gj]))
+            apply_planned_rmsprop(tables.ue, tables.ms_u, uniq_u[s], rows_u,
+                                  acc_u, agg_u, lr)
+            apply_planned_rmsprop(tables.iet, tables.ms_it, uniq_ij[s],
+                                  rows_ij, acc_ij, agg_ij, lr)
+            losses.append(loss.detach())
     return torch.stack(losses).sum()
 
 
@@ -189,18 +194,21 @@ def run_chunk_fused(
     tbl, mtbl = fuse_tables(tables)
     losses = []
     for s in range(u_steps.shape[0]):
-        rows, acc = planned_rows(tbl, mtbl, uniq[s])
-        with torch.enable_grad():
-            pu = rows[seg[s, :b], :k].requires_grad_()
-            pit = rows[seg[s, b:2 * b]].requires_grad_()
-            pjt = rows[seg[s, 2 * b:]].requires_grad_()
-            loss = _pairwise_loss(pu, pit, pjt, lu, li, lj, lb, mode, k)
-            gu, gi, gj = torch.autograd.grad(loss, (pu, pit, pjt))
-        # in the plan's order [u | i | j], the users' bias gradient 0
-        agg = torch.zeros_like(rows).index_add_(
-            0, seg[s], torch.cat([F.pad(gu, (0, 1)), gi, gj]))
-        apply_planned_rmsprop(tbl, mtbl, uniq[s], rows, acc, agg, lr)
-        losses.append(loss.detach())
+        with span("train.step"):
+            rows, acc = planned_rows(tbl, mtbl, uniq[s])
+            with torch.enable_grad():
+                pu = rows[seg[s, :b], :k].requires_grad_()
+                pit = rows[seg[s, b:2 * b]].requires_grad_()
+                pjt = rows[seg[s, 2 * b:]].requires_grad_()
+                with span("train.grad"):
+                    loss = _pairwise_loss(pu, pit, pjt, lu, li, lj, lb,
+                                          mode, k)
+                    gu, gi, gj = torch.autograd.grad(loss, (pu, pit, pjt))
+            # in the plan's order [u | i | j], the users' bias gradient 0
+            agg = torch.zeros_like(rows).index_add_(
+                0, seg[s], torch.cat([F.pad(gu, (0, 1)), gi, gj]))
+            apply_planned_rmsprop(tbl, mtbl, uniq[s], rows, acc, agg, lr)
+            losses.append(loss.detach())
     unfuse_tables(tables, tbl, mtbl)
     return torch.stack(losses).sum()
 
@@ -323,8 +331,9 @@ class BPR(Recommender):
     def sample_chunk(self, gen: torch.Generator, n_steps: int,
                      batch_size: int) -> Tuple[torch.Tensor, ...]:
         """(u, i, j), each [n_steps, batch_size], in one sampler call."""
-        return tuple(t.view(n_steps, batch_size)
-                     for t in self.sampler(gen, n_steps * batch_size))
+        with span("train.sample"):
+            trip = self.sampler(gen, n_steps * batch_size)
+        return tuple(t.view(n_steps, batch_size) for t in trip)
 
     def picks_fused(self, batch_size: int) -> bool:
         """Whether :meth:`train` runs the fused layout at ``batch_size``."""
@@ -335,9 +344,10 @@ class BPR(Recommender):
                     batch_size: int, fused: bool = False) -> torch.Tensor:
         """Sample and run one chunk, on the fused table if ``fused``; the
         summed loss stays on the device."""
-        u, i, j = self.sample_chunk(gen, n_steps, batch_size)
-        chunk = run_chunk_fused if fused else run_chunk
-        return chunk(self.tables, u, i, j, self.hyper(), self.mode)
+        with span("train.chunk"):
+            u, i, j = self.sample_chunk(gen, n_steps, batch_size)
+            chunk = run_chunk_fused if fused else run_chunk
+            return chunk(self.tables, u, i, j, self.hyper(), self.mode)
 
     def train(
         self,

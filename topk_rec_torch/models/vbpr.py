@@ -40,6 +40,7 @@ from ..ops.sparse_update import (
     plan_sparse_updates,
     planned_rows,
 )
+from ..tracing import span
 from ..utils import tprint
 from .base import Recommender
 from .bpr import INIT_STREAM, stream_generator
@@ -152,30 +153,33 @@ def run_chunk(
     uniq_ij, seg_ij = plan_sparse_updates(torch.cat([i_steps, j_steps], 1))
     losses = []
     for s in range(u_steps.shape[0]):
-        ic = feat[i_steps[s]]
-        jc = feat[j_steps[s]]
-        rows_u, acc_u = planned_rows(tables.ut, tables.ms_ut, uniq_u[s])
-        rows_ij, acc_ij = planned_rows(tables.it, tables.ms_it, uniq_ij[s])
-        with torch.enable_grad():
-            put = rows_u[seg_u[s]].requires_grad_()
-            pit = rows_ij[seg_ij[s, :b]].requires_grad_()
-            pjt = rows_ij[seg_ij[s, b:]].requires_grad_()
-            cem = tables.cem.detach().requires_grad_()
-            icb = tables.icb.detach().requires_grad_()
-            loss = _vbpr_loss(put, pit, pjt, cem, icb, ic, jc, hyper, mode,
-                              kh)
-            gu, gi, gj, g_cem, g_icb = torch.autograd.grad(
-                loss, (put, pit, pjt, cem, icb))
-        agg_u = torch.zeros_like(rows_u).index_add_(0, seg_u[s], gu)
-        agg_ij = torch.zeros_like(rows_ij).index_add_(
-            0, seg_ij[s], torch.cat([gi, gj]))
-        apply_planned_rmsprop(tables.ut, tables.ms_ut, uniq_u[s], rows_u,
-                              acc_u, agg_u, lr)
-        apply_planned_rmsprop(tables.it, tables.ms_it, uniq_ij[s], rows_ij,
-                              acc_ij, agg_ij, lr)
-        _rms_dense(tables.cem, tables.ms_cem, g_cem, lr)
-        _rms_dense(tables.icb, tables.ms_icb, g_icb, lr)
-        losses.append(loss.detach())
+        with span("train.step"):
+            ic = feat[i_steps[s]]
+            jc = feat[j_steps[s]]
+            rows_u, acc_u = planned_rows(tables.ut, tables.ms_ut, uniq_u[s])
+            rows_ij, acc_ij = planned_rows(tables.it, tables.ms_it,
+                                           uniq_ij[s])
+            with torch.enable_grad():
+                put = rows_u[seg_u[s]].requires_grad_()
+                pit = rows_ij[seg_ij[s, :b]].requires_grad_()
+                pjt = rows_ij[seg_ij[s, b:]].requires_grad_()
+                cem = tables.cem.detach().requires_grad_()
+                icb = tables.icb.detach().requires_grad_()
+                with span("train.grad"):
+                    loss = _vbpr_loss(put, pit, pjt, cem, icb, ic, jc, hyper,
+                                      mode, kh)
+                    gu, gi, gj, g_cem, g_icb = torch.autograd.grad(
+                        loss, (put, pit, pjt, cem, icb))
+            agg_u = torch.zeros_like(rows_u).index_add_(0, seg_u[s], gu)
+            agg_ij = torch.zeros_like(rows_ij).index_add_(
+                0, seg_ij[s], torch.cat([gi, gj]))
+            apply_planned_rmsprop(tables.ut, tables.ms_ut, uniq_u[s], rows_u,
+                                  acc_u, agg_u, lr)
+            apply_planned_rmsprop(tables.it, tables.ms_it, uniq_ij[s],
+                                  rows_ij, acc_ij, agg_ij, lr)
+            _rms_dense(tables.cem, tables.ms_cem, g_cem, lr)
+            _rms_dense(tables.icb, tables.ms_icb, g_icb, lr)
+            losses.append(loss.detach())
     return torch.stack(losses).sum()
 
 
@@ -293,15 +297,17 @@ class VBPR(Recommender):
     def sample_chunk(self, gen: torch.Generator, n_steps: int,
                      batch_size: int) -> Tuple[torch.Tensor, ...]:
         """(u, i, j), each [n_steps, batch_size], in one sampler call."""
-        return tuple(t.view(n_steps, batch_size)
-                     for t in self.sampler(gen, n_steps * batch_size))
+        with span("train.sample"):
+            trip = self.sampler(gen, n_steps * batch_size)
+        return tuple(t.view(n_steps, batch_size) for t in trip)
 
     def train_chunk(self, gen: torch.Generator, n_steps: int,
                     batch_size: int) -> torch.Tensor:
         """Sample and run one chunk; the summed loss stays on the device."""
-        u, i, j = self.sample_chunk(gen, n_steps, batch_size)
-        return run_chunk(self.tables, self._feat_device(), u, i, j,
-                         self.hyper(), self.mode)
+        with span("train.chunk"):
+            u, i, j = self.sample_chunk(gen, n_steps, batch_size)
+            return run_chunk(self.tables, self._feat_device(), u, i, j,
+                             self.hyper(), self.mode)
 
     def train(
         self,

@@ -27,10 +27,12 @@ generator identically: one seed gives byte-identical triplets from either
 store. The streams are not JAX's threefry streams; the tests hold the port
 to the JAX sampler's distributions.
 
-Host syncs: the redraw loop reads the number of rows still to fix (one
-``nonzero`` per round), so a call costs one sync when no row needs a
-redraw. ``BPR`` samples a whole chunk of steps in one call, which makes that
-one sync per chunk.
+Host syncs: the rows to redraw are found with one ``nonzero``, and each
+round of the redraw loop indexes by a boolean mask three times (the rows
+fixed, their draws, the rows left), each a wait on the card: a call costs
+1 + 3 x rounds syncs, one ``train.sync`` span each (``tracing.py``), and
+one sync when no row needs a redraw. ``BPR`` samples a whole chunk of steps
+in one call.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 
 from ..data.dataset import Interactions
 from ..device import resolve_device
+from ..tracing import span
 
 Triplets = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -97,14 +100,20 @@ def _sample(
     first = torch.argmax(valid.to(torch.uint8), dim=1)  # first True column
     j = cand.gather(1, first[:, None]).squeeze(1)
 
-    # exact rejection for the rows whose candidates were all positives
-    todo = (~valid.any(dim=1)).nonzero().squeeze(1)
+    # exact rejection for the rows whose candidates were all positives;
+    # each ``train.sync`` span holds one statement that waits on the card
+    with span("train.sync"):
+        todo = (~valid.any(dim=1)).nonzero().squeeze(1)
     while todo.numel():
         redraw = torch.randint(0, n_items, (todo.numel(),), generator=gen,
                                device=dev)
         ok = ~is_pos(u[todo], redraw)
-        j[todo[ok]] = redraw[ok]
-        todo = todo[~ok]
+        with span("train.sync"):
+            fixed = todo[ok]
+        with span("train.sync"):
+            j[fixed] = redraw[ok]
+        with span("train.sync"):
+            todo = todo[~ok]
     return u, i, j
 
 

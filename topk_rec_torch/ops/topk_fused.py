@@ -30,6 +30,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..tracing import span
+
 NEG_INF = float(np.finfo(np.float32).min)  # topk_pallas.py:84
 
 
@@ -343,8 +345,9 @@ def fused_score_topk(
         return fused_score_topk_plain(U, V, bias, excl_bits, k, exact_matmul)
     if U.device.type != "cuda":
         raise ValueError(f"unsupported device {U.device}")
-    _check_inputs(U, V, bias, excl_bits, k)
-    return _launch(U, V, bias, excl_bits, k, exact_matmul)
+    with span("k1.launch"):
+        _check_inputs(U, V, bias, excl_bits, k)
+        return _launch(U, V, bias, excl_bits, k, exact_matmul)
 
 
 fused_score_topk.launches = 0

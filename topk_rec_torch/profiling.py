@@ -1,13 +1,12 @@
-"""Profiling hooks (counterpart of ``topk_rec_tpu/utils/profiling.py``):
+"""Profiling hook (counterpart of ``topk_rec_tpu/utils/profiling.py``):
 a ``torch.profiler`` trace of a block of code, written as a Chrome trace,
-and a samples/s counter.
+with the program's ``tkr.*`` spans (``tracing.py``) among its host events.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Iterator, Optional
 
 import torch
@@ -32,23 +31,3 @@ def profile_trace(log_dir: Optional[str]) -> Iterator[None]:
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
-
-
-class Throughput:
-    """Rolling samples/sec counter for training loops (host clock: the
-    caller synchronises the card before reading a rate)."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self._t0 = time.perf_counter()
-        self._samples = 0
-
-    def add(self, n: int) -> None:
-        self._samples += n
-
-    @property
-    def samples_per_sec(self) -> float:
-        dt = time.perf_counter() - self._t0
-        return self._samples / dt if dt > 0 else 0.0

@@ -39,6 +39,7 @@ from .device import resolve_device
 from .parallel.distributed import all_gather_rows
 from .parallel.lookup import default_capacity, sharded_lookup
 from .parallel.mesh import Mesh
+from .tracing import span
 from .ops.topk_fused import (
     NEG_INF,
     bitmap_tensor,
@@ -255,18 +256,19 @@ class TopKServer(nn.Module):
         Every method but ``hybrid`` returns without synchronizing. The
         ``hybrid`` method makes one host sync, to find the rows that fail
         its audit (JAX keeps that loop on the device)."""
-        uid = torch.as_tensor(np.asarray(user_ids, dtype=np.int64)).to(
-            self.U.device
-        )
-        U, V = self.U, self.V
-        if method in ("kernel", "hybrid"):
-            U, V = self._kernel_tables()
-        if self.mesh is not None:
-            return self._query_mesh(U, V, uid, k, method)
-        return _query_local(
-            U, V, self.bias, self.seen, uid, k, method, self.n_items,
-            self.seen_format,
-        )
+        with span("serve.submit"):
+            uid = torch.as_tensor(np.asarray(user_ids, dtype=np.int64)).to(
+                self.U.device
+            )
+            U, V = self.U, self.V
+            if method in ("kernel", "hybrid"):
+                U, V = self._kernel_tables()
+            if self.mesh is not None:
+                return self._query_mesh(U, V, uid, k, method)
+            return _query_local(
+                U, V, self.bias, self.seen, uid, k, method, self.n_items,
+                self.seen_format,
+            )
 
     def _query_mesh(self, U, V, uid, k, method):
         """The sharded query (serving.py:225-259): the batch padded to a
@@ -308,12 +310,15 @@ class TopKServer(nn.Module):
         local batch cannot overflow, so the loop ends. Every rank reads the
         same gathered values, so all ranks retry together."""
         n = len(user_ids)
-        while True:
-            vals, idx = self.recommend_async(user_ids, k, method)
-            v = vals.cpu().numpy()[:n]
-            if self.mesh is None or not np.isnan(v).any():
-                return v, idx.cpu().numpy()[:n]
-            cap = self._lookup_capacity
-            if cap >= self._cap_limit:  # the NaN came from the data itself
-                return v, idx.cpu().numpy()[:n]
-            self._lookup_capacity = min(2 * cap, self._cap_limit)
+        with span("serve.recommend"):
+            while True:
+                vals, idx = self.recommend_async(user_ids, k, method)
+                with span("serve.fetch"):
+                    v = vals.cpu().numpy()[:n]
+                    ids = idx.cpu().numpy()[:n]
+                if self.mesh is None or not np.isnan(v).any():
+                    return v, ids
+                cap = self._lookup_capacity
+                if cap >= self._cap_limit:  # the NaN came from the data
+                    return v, ids
+                self._lookup_capacity = min(2 * cap, self._cap_limit)
