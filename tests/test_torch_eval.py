@@ -121,3 +121,89 @@ def test_engines_agree_with_raw_rank(use_kernel):
     np.testing.assert_array_equal(got.hits, oracle.hits)
     np.testing.assert_allclose(got.rr, oracle.rr, rtol=1e-12)
     assert got.count == oracle.count
+
+
+def _count_hits_per_like(top_idx, top_vals, seen_above, likes, n_cand, step,
+                         total):
+    """The hit count with the like bitmap built one like at a time, as the
+    port built it before its array build: the reference for that build."""
+    interval = total // step
+    users = np.array([u for u, l in likes.items() if len(l) > 0],
+                     dtype=np.int64)
+    count = sum(len(l) for l in likes.values())
+    if users.size == 0:
+        return tdev.EvalResult(hits=np.zeros(interval),
+                               rr=np.zeros(interval), count=count)
+    like_bm = np.zeros((users.size, (n_cand + 31) // 32), dtype=np.uint32)
+    for row, u in enumerate(users):
+        for c in likes[int(u)]:
+            like_bm[row, c >> 5] |= np.uint32(1) << np.uint32(c & 31)
+    idx = top_idx[users]
+    valid = np.isfinite(top_vals[users])
+    words = like_bm[np.arange(users.size)[:, None], idx >> 5]
+    hit = ((words >> (idx & 31).astype(np.uint32)) & 1).astype(bool) & valid
+    k_eff = idx.shape[1]
+    hits = np.zeros(interval)
+    for j in range(interval):
+        hits[j] = hit[:, :min((j + 1) * step, k_eff)].sum()
+    rrs = np.zeros(interval)
+    if seen_above is not None:
+        raw = np.arange(k_eff)[None, :] + seen_above[users]
+        rr_vals = np.where(hit, 1.0 / (raw + 1.0), 0.0)
+        bucket = raw // step
+        for j in range(interval):
+            rrs[j] = rr_vals[bucket <= j].sum()
+    return tdev.EvalResult(hits=hits, rr=rrs, count=count)
+
+
+def _hits_case(n_cand, n_users=14, k=12):
+    """Top-k lists and likes that reach each corner of the like bitmap:
+    bits 0, 31, 32 and n_cand - 1 returned and liked (user 0), a repeated
+    like (user 1), an empty list (user 2), liked items in -inf slots (user
+    3), a user with no entry (the last); the dict's order is not the
+    users' order."""
+    rng = np.random.default_rng(n_cand)
+    top_idx = np.stack([rng.permutation(n_cand)[:k]
+                        for _ in range(n_users)]).astype(np.int32)
+    top_vals = -np.sort(-rng.normal(size=(n_users, k))).astype(np.float32)
+    seen_above = np.cumsum(rng.integers(0, 3, (n_users, k)),
+                           axis=1).astype(np.int32)
+    corners = [0, 31, 32, n_cand - 1]
+    top_idx[0, [0, 3, 7, 11]] = corners
+    top_idx[1, :2] = [5, 40]
+    top_vals[3, -4:] = -np.inf
+    likes = {0: corners, 1: [5, 40, 5], 2: [],
+             3: [int(c) for c in top_idx[3, -5:]]}
+    for u in rng.permutation(np.arange(4, n_users - 1)):
+        mine = rng.choice(top_idx[u], size=rng.integers(0, 4), replace=False)
+        other = rng.choice(n_cand, size=rng.integers(1, 5), replace=False)
+        likes[int(u)] = [int(c) for c in np.concatenate([mine, other])]
+    return top_idx, top_vals, seen_above, likes
+
+
+@pytest.mark.parametrize("with_rr", [True, False])
+@pytest.mark.parametrize("container", [list, tuple, np.int64, np.int32])
+@pytest.mark.parametrize("n_cand", [64, 97])
+def test_count_hits_matches_per_like_reference_and_jax(n_cand, container,
+                                                       with_rr):
+    top_idx, top_vals, seen_above, likes = _hits_case(n_cand)
+    if container in (list, tuple):
+        likes = {u: container(l) for u, l in likes.items()}
+    else:
+        likes = {u: np.asarray(l, dtype=container) for u, l in likes.items()}
+    sa = seen_above if with_rr else None
+    step, total = 3, 12
+    got = tdev._count_hits(top_idx, top_vals, sa, likes, n_cand, step, total)
+    for ref in (_count_hits_per_like, jdev._count_hits):
+        want = ref(top_idx, top_vals, sa, likes, n_cand, step, total)
+        np.testing.assert_array_equal(got.hits, want.hits)
+        np.testing.assert_array_equal(got.rr, want.rr)
+        assert got.count == want.count
+    # the case reaches what it is built for: every liked, returned, finite
+    # slot is one hit, and every like counts, the repeated one too
+    n_hit = sum(int(np.sum(np.isin(top_idx[u], list(l))
+                           & np.isfinite(top_vals[u])))
+                for u, l in likes.items())
+    assert got.hits[-1] == n_hit and n_hit >= 4 + 2 + 1
+    assert got.count == sum(len(l) for l in likes.values())
+    assert (got.rr[-1] > 0) == with_rr

@@ -12,12 +12,14 @@ user chunk:
 Bitmaps live on the device as ``int32`` tensors holding the uint32 words'
 bits. Results come back to the host once, after every chunk is queued.
 The reciprocal-rank reconstruction and hit counting follow the JAX module
-line for line; ``evaluate_oracle`` (``topk_rec_tpu/eval/protocol.py``)
-stays the specification.
+line for line, but for the like bitmap, which is built in a few array
+operations instead of its loop over every like; ``evaluate_oracle``
+(``topk_rec_tpu/eval/protocol.py``) stays the specification.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -232,7 +234,10 @@ def _count_hits(
     """Bucketed hit counting on the host, carried over from
     eval/device.py:239-285: hits bucket by unseen rank (reference
     evaluate.py:100); reciprocal ranks by raw rank ``unseen rank +
-    seen_above`` with value 1/(t+1) (reference utils.py:116-119)."""
+    seen_above`` with value 1/(t+1) (reference utils.py:116-119). The
+    users' like lists (lists, tuples or integer arrays of candidate
+    positions) are packed into one bitmap row each in a few array
+    operations."""
     with span("eval.count_hits"):
         interval = total // step
         users = np.array([u for u, l in likes.items() if len(l) > 0],
@@ -245,9 +250,16 @@ def _count_hits(
         n_words = (n_cand + 31) // 32
         like_bm = np.zeros((users.size, n_words), dtype=np.uint32)
         with span("eval.like_bitmap"):
-            for row, u in enumerate(users):
-                for c in likes[int(u)]:
-                    like_bm[row, c >> 5] |= np.uint32(1) << np.uint32(c & 31)
+            # every like as (row, candidate); ``.at`` applies repeated
+            # (row, word) pairs one by one, so duplicate likes are harmless
+            lists = [l for l in likes.values() if len(l) > 0]
+            lengths = np.fromiter(map(len, lists), np.int64, count=users.size)
+            flat = np.fromiter(itertools.chain.from_iterable(lists), np.int64,
+                               count=int(lengths.sum()))
+            rows = np.repeat(np.arange(users.size), lengths)
+            np.bitwise_or.at(like_bm, (rows, flat >> 5),
+                             np.left_shift(np.uint32(1),
+                                           (flat & 31).astype(np.uint32)))
         idx = top_idx[users]                       # [nu, k]
         valid = np.isfinite(top_vals[users])
         words = like_bm[np.arange(users.size)[:, None], idx >> 5]
