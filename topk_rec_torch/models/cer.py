@@ -21,6 +21,13 @@ The E-solve takes JAX's routes (cer.py:159-207):
 F stays on the device for the whole ``train`` and is released afterwards,
 with G (about 1.2 GB at d = 20000 on the MovieLens catalog). Every product
 is true fp32, as JAX's ``HIGHEST``.
+
+Spans (``tracing.py``): ``cer.features`` (F's upload), ``cer.iter`` (one
+iteration), ``cer.esolve`` (the E-solve) holding ``cer.gram`` (G, in the
+first), ``cer.cg_step`` (a CG step with the check after it) and
+``cer.esolve_direct`` (a direct Woodbury solve), ``cer.loss`` (the loss
+read) and ``cer.writeback`` (the tables' read and the cold-start
+write-back); the half-sweeps are ``WMF._sweeps``' ``als.half_sweep``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from ..data.io import read_dat, write_dat
+from ..tracing import span
 from ..utils import tprint
 from ..utils.statelog import StateLog
 from .wmf import WMF
@@ -66,16 +74,20 @@ def _ridge_woodbury_cg(
     rs = (R * R).sum(0)
     ys = torch.clamp((Y * Y).sum(0), min=1e-30)
     steps = 0
-    while steps < iters and float((rs / ys).max()) > tol * tol:
-        AP = matvec(P)
-        alpha = rs / torch.clamp((P * AP).sum(0), min=1e-30)
-        X = X + alpha[None, :] * P
-        R = R - alpha[None, :] * AP
-        rs_new = (R * R).sum(0)
-        beta = rs_new / torch.clamp(rs, min=1e-30)
-        P = R + beta[None, :] * P
-        rs = rs_new
-        steps += 1
+    more = iters > 0 and float((rs / ys).max()) > tol * tol
+    while more:
+        # a step and the host check that decides the next one
+        with span("cer.cg_step"):
+            AP = matvec(P)
+            alpha = rs / torch.clamp((P * AP).sum(0), min=1e-30)
+            X = X + alpha[None, :] * P
+            R = R - alpha[None, :] * AP
+            rs_new = (R * R).sum(0)
+            beta = rs_new / torch.clamp(rs, min=1e-30)
+            P = R + beta[None, :] * P
+            rs = rs_new
+            steps += 1
+            more = steps < iters and float((rs / ys).max()) > tol * tol
     rel = float(torch.sqrt((rs / ys).max()))
     return lv * (F.T @ X), rel, steps
 
@@ -84,9 +96,10 @@ def _ridge_woodbury_direct(F: torch.Tensor, G: torch.Tensor, Y: torch.Tensor,
                            lv: float, le: float) -> torch.Tensor:
     """The Woodbury form solved directly (cer.py:103-115): the fallback
     when CG does not converge."""
-    n = G.shape[0]
-    A = le * torch.eye(n, dtype=G.dtype, device=G.device) + lv * G
-    return lv * (F.T @ torch.linalg.solve(A, Y))
+    with span("cer.esolve_direct"):
+        n = G.shape[0]
+        A = le * torch.eye(n, dtype=G.dtype, device=G.device) + lv * G
+        return lv * (F.T @ torch.linalg.solve(A, Y))
 
 
 class CER(WMF):
@@ -127,38 +140,42 @@ class CER(WMF):
 
     def _feat_device(self) -> torch.Tensor:
         if self._feat_dev is None:
-            self._feat_dev = torch.from_numpy(self.feat).to(self.device)
+            with span("cer.features"):
+                self._feat_dev = torch.from_numpy(self.feat).to(self.device)
         return self._feat_dev
 
     def _solve_E(self, Y: torch.Tensor) -> torch.Tensor:
-        F = self._feat_device()
-        self.e_solver_steps = 0
-        if self.d <= self.n_items:
-            return _ridge_direct(F, Y, self.lv, self.le)
-        if self._gram_items is None:
-            self._gram_items = F @ F.T
-        G = self._gram_items
-        # once CG has failed for this (le, lv, F), it fails every iteration
-        if self._e_solver_use_direct:
-            return _ridge_woodbury_direct(F, G, Y, self.lv, self.le)
-        E, rel, self.e_solver_steps = _ridge_woodbury_cg(
-            F, G, Y, self.lv, self.le, self.e_solver_iters,
-            tol=self.e_solver_tol)
-        # NaN-safe: `NaN <= tol` is False, so a diverged CG falls back too
-        if not (rel <= self.e_solver_fallback_tol):
-            warnings.warn(
-                f"CER E-solve: Woodbury-CG did not converge in "
-                f"{self.e_solver_iters} iterations (relative residual "
-                f"{rel:.2e} > {self.e_solver_fallback_tol:.0e}; "
-                f"le={self.le:g} may be too small for the CG budget) — "
-                f"falling back to the exact direct solve (slower) for the "
-                f"rest of this feature set. To retry the fast path after "
-                f"raising model.e_solver_iters, call set_features again (it "
-                f"resets the verdict).",
-                RuntimeWarning, stacklevel=2)
-            self._e_solver_use_direct = True
-            return _ridge_woodbury_direct(F, G, Y, self.lv, self.le)
-        return E
+        with span("cer.esolve"):
+            F = self._feat_device()
+            self.e_solver_steps = 0
+            if self.d <= self.n_items:
+                return _ridge_direct(F, Y, self.lv, self.le)
+            if self._gram_items is None:
+                with span("cer.gram"):
+                    self._gram_items = F @ F.T
+            G = self._gram_items
+            # once CG has failed for this (le, lv, F), it fails every
+            # iteration
+            if self._e_solver_use_direct:
+                return _ridge_woodbury_direct(F, G, Y, self.lv, self.le)
+            E, rel, self.e_solver_steps = _ridge_woodbury_cg(
+                F, G, Y, self.lv, self.le, self.e_solver_iters,
+                tol=self.e_solver_tol)
+            # NaN-safe: `NaN <= tol` is False, so a diverged CG falls back too
+            if not (rel <= self.e_solver_fallback_tol):
+                warnings.warn(
+                    f"CER E-solve: Woodbury-CG did not converge in "
+                    f"{self.e_solver_iters} iterations (relative residual "
+                    f"{rel:.2e} > {self.e_solver_fallback_tol:.0e}; "
+                    f"le={self.le:g} may be too small for the CG budget) — "
+                    f"falling back to the exact direct solve (slower) for "
+                    f"the rest of this feature set. To retry the fast path "
+                    f"after raising model.e_solver_iters, call set_features "
+                    f"again (it resets the verdict).",
+                    RuntimeWarning, stacklevel=2)
+                self._e_solver_use_direct = True
+                return _ridge_woodbury_direct(F, G, Y, self.lv, self.le)
+            return E
 
     def train(
         self,
@@ -188,29 +205,32 @@ class CER(WMF):
         t = self._device_tables(E=self.E)
         loss = np.exp(50)
         for it in range(max_iter):
-            t1 = time.time()
-            Fe = F @ t.E
-            fit = self._sweeps(prior=Fe)
-            t.E = self._solve_E(t.V)
-            loss_old = loss
-            loss = float(fit + self._loss_reg(Fe)
-                         + 0.5 * self.le * (t.E ** 2).sum())
-            cond = abs(loss_old - loss) / loss_old
-            slog.append(it, loss, cond)
-            if save_lag and save_dir and it % save_lag == 0:
-                self._save_lag_dump(save_dir, it)
-            if verbose:
-                tprint("Iter %3d, loss %.6f, time %.2fs"
-                       % (it, loss, time.time() - t1))
-            if cond < tol:
-                break
-        self._sync_host()
-        self.E = t.E.cpu().numpy().copy()
-        # cold-start write-back (ref cer.py:70-73)
-        Fe = (F @ t.E).cpu().numpy()
-        unrated = np.setdiff1d(np.arange(self.n_items),
-                               self.inter.rated_items)
-        self.fie[unrated] = Fe[unrated]
+            with span("cer.iter"):
+                t1 = time.time()
+                Fe = F @ t.E
+                fit = self._sweeps(prior=Fe)
+                t.E = self._solve_E(t.V)
+                with span("cer.loss"):
+                    loss_old = loss
+                    loss = float(fit + self._loss_reg(Fe)
+                                 + 0.5 * self.le * (t.E ** 2).sum())
+                cond = abs(loss_old - loss) / loss_old
+                slog.append(it, loss, cond)
+                if save_lag and save_dir and it % save_lag == 0:
+                    self._save_lag_dump(save_dir, it)
+                if verbose:
+                    tprint("Iter %3d, loss %.6f, time %.2fs"
+                           % (it, loss, time.time() - t1))
+                if cond < tol:
+                    break
+        with span("cer.writeback"):
+            self._sync_host()
+            self.E = t.E.cpu().numpy().copy()
+            # cold-start write-back (ref cer.py:70-73)
+            Fe = (F @ t.E).cpu().numpy()
+            unrated = np.setdiff1d(np.arange(self.n_items),
+                                   self.inter.rated_items)
+            self.fie[unrated] = Fe[unrated]
         self._feat_dev = None
         self._gram_items = None
 

@@ -9,9 +9,10 @@ half-sweeps (``ops/als.py``). Defaults mirror reference wmf.py:11: lu = lv =
 The uniform [0, 1) init comes from ``np.random.default_rng(seed)``, the
 same NumPy draws as the JAX package's, so the two trainers can be held to
 each other value for value. During ``train`` the tables are the buffers of
-an :class:`ALSTables` on the model's device, and each iteration makes one
-host sync, reading the loss; afterwards ``fue``/``fie`` are host arrays
-again.
+an :class:`ALSTables` on the model's device; each iteration reads its loss
+once, and each block of a half-sweep waits on the card once
+(``batched_solve``); afterwards ``fue``/``fie`` are host arrays again. Each
+half-sweep is an ``als.half_sweep`` span (``tracing.py``).
 
 With a ``mesh`` (``set_mesh``), every half-sweep runs through the
 distributed sweep (``parallel/als.py``), its slots split over the mesh's
@@ -30,6 +31,7 @@ import torch
 from torch import nn
 
 from ..data.io import write_dat
+from ..tracing import span
 from ..utils import tprint
 from ..utils.statelog import StateLog
 from ..ops.als import ALSPlan, half_sweep
@@ -115,12 +117,14 @@ class WMF(Recommender):
         the optional item ``prior``); returns the item fit loss as a 0-d
         tensor (wmf.py:92-122)."""
         t = self.tables if self.tables is not None else self._device_tables()
-        t.U, _ = self._half_sweep(self._user_plan, t.U, t.V,
-                                  self._rated_items, self.a, self.b, self.lu,
-                                  as_numpy=False)
-        t.V, fit = self._half_sweep(self._item_plan, t.V, t.U,
-                                    self._rated_users, self.a, self.b,
-                                    self.lv, prior=prior, as_numpy=False)
+        with span("als.half_sweep"):
+            t.U, _ = self._half_sweep(self._user_plan, t.U, t.V,
+                                      self._rated_items, self.a, self.b,
+                                      self.lu, as_numpy=False)
+        with span("als.half_sweep"):
+            t.V, fit = self._half_sweep(self._item_plan, t.V, t.U,
+                                        self._rated_users, self.a, self.b,
+                                        self.lv, prior=prior, as_numpy=False)
         return fit
 
     def _save_lag_dump(self, save_dir: str, it: int) -> None:

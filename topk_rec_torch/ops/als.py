@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tracing import span
 
 Tensorish = Union[np.ndarray, torch.Tensor]
 
@@ -95,16 +96,17 @@ def looped_cholesky_solve(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 def batched_solve(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Solve A_t x_t = rhs_t for a batch of SPD k×k systems.
 
-    ``A`` [B, k, k], ``rhs`` [B, k] or [B, k, m]. One host sync reads
-    whether any factorization failed; those systems are solved again by
-    :func:`looped_cholesky_solve`.
+    ``A`` [B, k, k], ``rhs`` [B, k] or [B, k, m]. One host sync (the span
+    ``als.sync``) reads whether any factorization failed; those systems
+    are solved again by :func:`looped_cholesky_solve`.
     """
     squeeze = rhs.dim() == A.dim() - 1
     if squeeze:
         rhs = rhs.unsqueeze(-1)
     L, info = torch.linalg.cholesky_ex(_jitter(A)[0])
     x = torch.cholesky_solve(rhs, L)
-    bad = info.nonzero().squeeze(1)
+    with span("als.sync"):
+        bad = info.nonzero().squeeze(1)
     if bad.numel():
         x[bad] = looped_cholesky_solve(A[bad], rhs[bad])
     return x.squeeze(-1) if squeeze else x
