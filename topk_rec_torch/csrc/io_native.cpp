@@ -4,13 +4,17 @@
 // (old/cr/data.cpp sparse readers, old/cr/utils.cpp mtx_fprintf/mtx_fscanf
 // text matrix IO): the hot host-side parsing/serialization paths, exposed
 // to Python via a C ABI + ctypes (topk_rec_torch/native/io_native.py).
-// A copy of topk_rec_tpu/native/io_native.cpp, so the PyTorch package
-// stands alone.
+// Grown from a copy of topk_rec_tpu/native/io_native.cpp (so the PyTorch
+// package stands alone); tkr_parse_likes is the port's own.
 //
 //   tkr_parse_ratings: ratings fold text -> (pos_u, pos_i, seen_u, seen_i)
 //       index arrays. Semantics identical to the Python spec in
 //       topk_rec_torch/data/io.py::parse_ratings (like=='1' => positive; every known
 //       (user, item) mention => seen; unknown ids dropped).
+//   tkr_parse_likes: test fold text -> each user's liked candidates, as
+//       (users, offsets, items). Semantics identical to the Python spec in
+//       topk_rec_torch/eval/protocol.py::load_test_likes; a file holding a
+//       byte whose text-mode reading it does not copy is left to that spec.
 //   tkr_write_dat: "%f "-per-value text matrix writer, byte-compatible
 //       with topk_rec_torch/data/io.py::write_dat (and the reference's
 //       export_embed_to_file, utils.py:47-55).
@@ -18,10 +22,12 @@
 // Build: at first use, by topk_rec_torch/ops/_build.py (g++, a library of
 // its own).
 
+#include <array>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <string>
+#include <string_view>
 #include <unordered_map>
 #include <vector>
 
@@ -33,7 +39,7 @@ static char* read_whole_file(const char* path, size_t* out_len) {
   std::fseek(f, 0, SEEK_END);
   long len = std::ftell(f);
   std::fseek(f, 0, SEEK_SET);
-  char* buf = static_cast<char*>(std::malloc(len + 1));
+  char* buf = len < 0 ? nullptr : static_cast<char*>(std::malloc(len + 1));
   if (!buf) {
     std::fclose(f);
     return nullptr;
@@ -130,6 +136,145 @@ long long tkr_parse_ratings(const char* path, const char** uid_strs,
   *out_seen_i = dup(seen_i);
   *out_n_pos = (long long)pos_u.size();
   *out_n_seen = (long long)seen_u.size();
+  return 0;
+}
+
+static const char* find_byte(const char* p, const char* end, char c) {
+  const void* q = std::memchr(p, c, end - p);
+  return q ? static_cast<const char*>(q) : end;
+}
+
+// A map passed as its n keys joined by '\n' and their values in the same
+// order. The views point into `keys`, which outlives the map.
+static void key_map(const char* keys, long long keys_len,
+                    const long long* vals, long long n,
+                    std::unordered_map<std::string_view, long long>* out) {
+  out->reserve(n * 2);
+  const char* p = keys;
+  const char* end = keys + keys_len;
+  for (long long i = 0; i < n; ++i) {
+    const char* q = find_byte(p, end, '\n');
+    out->emplace(std::string_view(p, q - p), vals[i]);
+    p = q + 1;
+  }
+}
+
+// Bytes that Python's text-mode reading does not take as this parser
+// does: non-ASCII (decoded), NUL, and \v \f \x1c-\x1f (whitespace to
+// str.strip, which strips only ' ', '\t' and '\r' here).
+static bool unhandled_byte(unsigned char c) {
+  return c >= 0x80 || c == 0 || c == 0x0b || c == 0x0c ||
+         (c >= 0x1c && c <= 0x1f);
+}
+
+static bool strip_byte(char c) { return c == ' ' || c == '\t' || c == '\r'; }
+
+// Parse one test fold file into each user's liked candidates. Rules of the
+// Python spec (eval/protocol.py::load_test_likes): a line of an unknown
+// user is skipped; a term is a like when the text after its first ':' is
+// exactly "1" and its item is a candidate; duplicates stay; a known user
+// with no likes keeps an empty list; a later line of a user (by value)
+// replaces its list and keeps its first position. Lines are split on
+// '\n' and stripped at both ends.
+//
+// Outputs (malloc'd; caller frees with tkr_free): out_users, the users in
+// order of their first line; out_offsets, n_users + 1 offsets into
+// out_items, each user's likes from its last line in file order.
+// Returns 0 ok; else the file is left to the Python spec: 1 open or
+// allocation failure, 2 a byte above, or a '\r' not followed by '\n' (a
+// line break to Python's text mode).
+long long tkr_parse_likes(const char* path, const char* user_keys,
+                          long long user_keys_len, const long long* user_vals,
+                          long long n_users, const char* cand_keys,
+                          long long cand_keys_len, const long long* cand_vals,
+                          long long n_cands, long long** out_users,
+                          long long** out_offsets, long long** out_items,
+                          long long* out_n_users, long long* out_n_items) {
+  size_t len = 0;
+  char* buf = read_whole_file(path, &len);
+  if (!buf) return 1;
+  static const auto left = [] {  // the bytes above, and '\r'
+    std::array<bool, 256> t{};
+    for (int c = 0; c < 256; ++c) t[c] = unhandled_byte(c) || c == '\r';
+    return t;
+  }();
+  for (size_t k = 0; k < len; ++k) {
+    unsigned char c = buf[k];
+    if (left[c] && (c != '\r' || k + 1 == len || buf[k + 1] != '\n')) {
+      std::free(buf);
+      return 2;
+    }
+  }
+  std::unordered_map<std::string_view, long long> uids, cands;
+  key_map(user_keys, user_keys_len, user_vals, n_users, &uids);
+  key_map(cand_keys, cand_keys_len, cand_vals, n_cands, &cands);
+
+  std::vector<long long> users, items;
+  std::vector<std::pair<size_t, size_t>> lists;  // [begin, end) in items
+  std::unordered_map<long long, size_t> slot;     // user -> its index
+  items.reserve(len / 8);
+  const char* p = buf;
+  const char* end = buf + len;
+  while (p < end) {
+    const char* b = p;
+    const char* e = find_byte(p, end, '\n');
+    p = e + 1;
+    while (b < e && strip_byte(*b)) ++b;
+    while (e > b && strip_byte(e[-1])) --e;
+    const char* t = find_byte(b, e, ',');
+    auto uit = uids.find(std::string_view(b, t - b));
+    if (uit == uids.end()) continue;
+    size_t begin = items.size();
+    while (t < e) {  // t is at the ',' before a term
+      const char* s = t + 1;
+      t = find_byte(s, e, ',');
+      const char* colon = find_byte(s, t, ':');
+      if (t - colon == 2 && colon[1] == '1') {
+        auto cit = cands.find(std::string_view(s, colon - s));
+        if (cit != cands.end()) items.push_back(cit->second);
+      }
+    }
+    auto [it, fresh] = slot.emplace(uit->second, users.size());
+    if (fresh) {
+      users.push_back(uit->second);
+      lists.emplace_back(begin, items.size());
+    } else {
+      lists[it->second] = {begin, items.size()};
+    }
+  }
+  std::free(buf);
+
+  size_t n = users.size(), total = 0;
+  for (const auto& l : lists) total += l.second - l.first;
+  // one element spare each, so no pointer handed back is null
+  auto alloc = [](size_t m) {
+    return static_cast<long long*>(std::malloc((m + 1) * sizeof(long long)));
+  };
+  long long* u_out = alloc(n);
+  long long* o_out = alloc(n);
+  long long* i_out = alloc(total);
+  if (!u_out || !o_out || !i_out) {
+    std::free(u_out);
+    std::free(o_out);
+    std::free(i_out);
+    return 1;
+  }
+  size_t at = 0;
+  for (size_t k = 0; k < n; ++k) {
+    u_out[k] = users[k];
+    o_out[k] = (long long)at;
+    size_t m = lists[k].second - lists[k].first;
+    if (m)
+      std::memcpy(i_out + at, items.data() + lists[k].first,
+                  m * sizeof(long long));
+    at += m;
+  }
+  o_out[n] = (long long)at;
+  *out_users = u_out;
+  *out_offsets = o_out;
+  *out_items = i_out;
+  *out_n_users = (long long)n;
+  *out_n_items = (long long)total;
   return 0;
 }
 

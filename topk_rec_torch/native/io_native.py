@@ -2,13 +2,15 @@
 counterpart of ``topk_rec_tpu/native/io_native.py``):
 
   * ``parse_ratings`` — ratings-fold text -> (pos, seen) index arrays
+  * ``parse_likes``   — test-fold text -> each user's liked candidates
   * ``parse_dat``     — ``.dat`` text matrix -> flat float32 values
   * ``write_dat``     — ``%f``-formatted text matrix writer
 
-Each mirrors the Python implementation in ``data/io.py``, which is its
-specification. The library is compiled with g++ at first use
-(``ops/_build.py``); ``available()`` is False when that fails, and the
-callers then run the Python parser.
+Each mirrors the Python implementation in ``data/io.py`` (``parse_likes``:
+``eval/protocol.py``'s ``load_test_likes``), which is its specification.
+The library is compiled with g++ at first use (``ops/_build.py``);
+``available()`` is False when that fails, and the callers then run the
+Python parser.
 """
 
 from __future__ import annotations
@@ -42,6 +44,15 @@ def _load() -> Optional[ctypes.CDLL]:
             *[ctypes.POINTER(pi)] * 4,        # out pos_u/i, seen_u/i
             ctypes.POINTER(ll),               # out n_pos
             ctypes.POINTER(ll),               # out n_seen
+        ]
+        pll = ctypes.POINTER(ll)
+        lib.tkr_parse_likes.restype = ll
+        lib.tkr_parse_likes.argtypes = [
+            ctypes.c_char_p,                  # path
+            ctypes.c_char_p, ll, pll, ll,     # user keys, length, values, n
+            ctypes.c_char_p, ll, pll, ll,     # candidate keys, ...
+            *[ctypes.POINTER(pll)] * 3,       # out users, offsets, items
+            pll, pll,                         # out n_users, n_items
         ]
         lib.tkr_free.argtypes = [ctypes.c_void_p]
         lib.tkr_write_dat.restype = ctypes.c_int
@@ -96,6 +107,58 @@ def parse_ratings(
                                                                 copy=True)
         lib.tkr_free(ptr)
         arrays.append(arr)
+    return tuple(arrays)
+
+
+def _joined(ids: Dict[str, int], vals: np.ndarray) -> Tuple[bytes, np.ndarray]:
+    """A map as ``tkr_parse_likes`` takes it: the keys of ``ids`` joined by
+    ``\\n``, and ``vals``, one int64 per key in the same order. A key that
+    holds a ``\\n`` matches no id of a line, so it is left out with its
+    value."""
+    keys = list(ids)
+    joined = "\n".join(keys)
+    if joined.count("\n") > max(len(keys) - 1, 0):
+        kept = np.array(["\n" not in k for k in keys], dtype=bool)
+        joined = "\n".join(k for k, keep in zip(keys, kept) if keep)
+        vals = vals[kept]
+    return joined.encode(), vals
+
+
+def parse_likes(
+    path: str, uids: Dict[str, int], cand_ids: Dict[str, int]
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Test-fold text -> int64 ``(users, offsets, items)``: the users with
+    a line, in order of their first; user ``users[n]``'s likes are
+    ``items[offsets[n]:offsets[n + 1]]``, from its last line, each the
+    position of its candidate in ``cand_ids``' order. None when the file is
+    left to the caller's Python loop: it holds a byte that Python's text
+    mode reads otherwise than this parser (non-ASCII, a lone ``\\r``,
+    ``\\f`` ...), or it cannot be opened (the loop then raises Python's own
+    error)."""
+    lib = _load()
+    assert lib is not None
+    u_keys, u_vals = _joined(
+        uids, np.fromiter(uids.values(), dtype=np.int64, count=len(uids)))
+    c_keys, c_vals = _joined(cand_ids, np.arange(len(cand_ids),
+                                                 dtype=np.int64))
+    pll = ctypes.POINTER(ctypes.c_longlong)
+    outs = [pll() for _ in range(3)]
+    n_users = ctypes.c_longlong(0)
+    n_items = ctypes.c_longlong(0)
+    rc = lib.tkr_parse_likes(
+        path.encode(),
+        u_keys, len(u_keys), u_vals.ctypes.data_as(pll), len(u_vals),
+        c_keys, len(c_keys), c_vals.ctypes.data_as(pll), len(c_vals),
+        *(ctypes.byref(o) for o in outs),
+        ctypes.byref(n_users), ctypes.byref(n_items),
+    )
+    if rc != 0:
+        return None
+    sizes = [n_users.value, n_users.value + 1, n_items.value]
+    arrays = []
+    for ptr, size in zip(outs, sizes):
+        arrays.append(np.ctypeslib.as_array(ptr, shape=(size,)).copy())
+        lib.tkr_free(ptr)
     return tuple(arrays)
 
 
