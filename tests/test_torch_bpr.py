@@ -42,8 +42,9 @@ from topk_rec_tpu.ops import sparse_update as jsu
 from topk_rec_torch.checkpoint import CheckpointManager, OrbaxCheckpointError
 from topk_rec_torch.data import Interactions as PortInteractions
 from topk_rec_torch.interop import bpr_from_jax, bpr_to_jax
-from topk_rec_torch.models import BPR
+from topk_rec_torch.models import BPR, VBPR
 from topk_rec_torch.models import bpr as tbpr
+from topk_rec_torch.models import vbpr as tvbpr
 from topk_rec_torch.models.bpr import (
     BPRTables,
     _pairwise_loss,
@@ -277,6 +278,44 @@ def test_fused_equals_separate(fused_inter, monkeypatch):
         for name in ("ue", "ie", "ib"):
             np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
                                        rtol=2e-5, atol=1e-7, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["bpr-separate", "bpr-fused", "vbpr"])
+def test_chunk_reads_its_modules_loss_and_updates(small_inter, monkeypatch,
+                                                  kind):
+    """A chunk calls the loss and the updates that its model's module holds
+    when it runs (the benchmark's faults patch them there): no-op updates
+    leave every table and accumulator as it was, and the loss is called
+    once a step."""
+    steps, batch = 3, 32
+    if kind == "vbpr":
+        module, updates = tvbpr, ("apply_planned_rmsprop", "_rms_dense")
+        model = VBPR(k=6, d=5, lr=0.05, device="cpu")
+        model.set_interactions(_port(small_inter))
+        model.set_features(_rows(7, small_inter.n_items, 5))
+        chunk_args = ()
+    else:
+        module, updates = tbpr, ("apply_planned_rmsprop",)
+        model = BPR(k=6, lr=0.05, device="cpu")
+        model.set_interactions(_port(small_inter))
+        chunk_args = (kind == "bpr-fused",)
+    model._init_params(torch.Generator().manual_seed(0))
+    before = {n: t.clone() for n, t in model.tables.state_dict().items()}
+    name = "_vbpr_loss" if kind == "vbpr" else "_pairwise_loss"
+    loss, calls = getattr(module, name), []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return loss(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, counted)
+    for update in updates:
+        monkeypatch.setattr(module, update, lambda *args: None)
+    model.train_chunk(torch.Generator().manual_seed(1), steps, batch,
+                      *chunk_args)
+    assert len(calls) == steps
+    for n, t in model.tables.state_dict().items():
+        assert torch.equal(t, before[n]), n
 
 
 @pytest.mark.parametrize("layout", ["auto", "separate", "fused"])

@@ -47,7 +47,9 @@ Layout:
               (triplets), sparse_update (sparse RMSProp) and als (batched
               weighted-ALS half-sweeps)
   models/     Recommender, BPR, VBPR, WMF, CER, DPM and its MLP and SDAE
-              encoders (counterpart of topk_rec_tpu/models)
+              encoders (counterpart of topk_rec_tpu/models); BPR (both
+              table layouts) and VBPR share pairwise.py's step loop and
+              epoch loop and keep their losses, tables and chunk statements
   fusion/     late fusion: ModalityScores, the five weightings,
               evaluate_fused (counterpart of topk_rec_tpu/fusion)
   experiment.py  the fold x modality grid (counterpart of

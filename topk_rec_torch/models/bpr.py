@@ -6,68 +6,45 @@ softplus loss with l2 or l1 regularization (reference single/bpr.py:87-99),
 with sparse RMSProp (``ops/sparse_update.py``). Defaults mirror reference
 bpr.py:20.
 
-A training chunk has two halves, so that tests can hand both packages the
-same triplets:
-
-* :meth:`BPR.sample_chunk`: ``n_steps * batch_size`` triplets in one call
-  to the device sampler (one host sync, see ``ops/sampling.py``);
-* :func:`run_chunk`: the steps on those triplets. It plans the duplicate
-  rows of all steps at once, then each step gathers the unique rows of the
-  user table and of the item table (the item bias is column ``k`` of that
-  table, bpr.py:248-254), takes the gradients of :func:`_pairwise_loss`
-  with ``torch.autograd.grad`` on the gathered rows, sums them per row with
-  ``index_add_`` and applies RMSProp in place.
-
-:func:`run_chunk_fused` runs the same steps on one [n_users + n_items,
-k + 1] table, user rows first with a bias column held at 0 (bpr.py:172-240):
-one plan, one gather, one ``index_add_`` and one RMSProp update per step
-where the separate tables take two of each. :meth:`BPR.train` picks it as
-the JAX package does (bpr.py:515-518): when asked, or under ``auto`` for a
-batch of at least :data:`_FUSED_LAYOUT_MIN_BATCH` on at most
-:data:`_FUSED_LAYOUT_MAX_ROWS` rows. Both layouts compute the same
-arithmetic on disjoint row ranges, and the sampler draws the same triplets
-under either.
+The sampler, the step loop and the epoch loop are the pairwise trainers'
+(``models/pairwise.py``). BPR owns its loss (:func:`_pairwise_loss`), its
+tables (:class:`BPRTables`; the item bias is column ``k`` of the item
+table, bpr.py:248-254), its header lines and its two table layouts, each a
+statement of the shared step loop: :func:`run_chunk` on the user and the
+item table, and :func:`run_chunk_fused` on one [n_users + n_items, k + 1]
+table (bpr.py:172-240), one plan, gather, ``index_add_`` and RMSProp
+update a step where the separate tables take two of each.
+:meth:`BPR.train` picks the fused layout as the JAX package does
+(bpr.py:515-518): when asked, or under ``auto`` for a batch of at least
+:data:`_FUSED_LAYOUT_MIN_BATCH` on at most :data:`_FUSED_LAYOUT_MAX_ROWS`
+rows. Both layouts compute the same arithmetic on disjoint row ranges, and
+the sampler draws the same triplets under either.
 
 The BPR step has no Pallas kernel in the JAX package (it is XLA gathers,
 segment sums and scatters), so here it is plain PyTorch: a few dozen small
 launches per step, whose overhead sets the pace at batch 256.
-
-Random streams: the init draws come from a generator of their own, and each
-epoch from a generator derived from (seed, epoch), so a run resumed at an
-epoch boundary repeats the uninterrupted run's stream (bpr.py:520-525).
-They are not JAX's streams. On the card ``index_add_`` sums duplicates with
-atomics, so two runs there may differ in the last bits; on the CPU a run is
-reproducible.
 """
 
 from __future__ import annotations
 
-import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..checkpoint import CheckpointManager
-from ..ops.sampling import TripletSampler
-from ..ops.sparse_update import (
-    apply_planned_rmsprop,
-    plan_sparse_updates,
-    planned_rows,
-)
+from ..ops.sparse_update import apply_planned_rmsprop
 from ..tracing import span
 from ..utils import tprint
-from .base import Recommender
-
-INIT_STREAM = 2**31 - 1  # the init's stream, apart from every epoch's
-
-
-def stream_generator(seed: int, stream: int, device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded from (seed, stream)."""
-    state = np.random.SeedSequence([seed, stream]).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(state[0]))
+from .pairwise import (
+    INIT_STREAM,
+    Leaf,
+    PairwiseRecommender,
+    SparseTable,
+    run_planned_steps,
+    stream_generator,
+)
 
 
 def _pairwise_loss(pu, pit, pjt, lu, li, lj, lb, mode, k, weight=None):
@@ -140,36 +117,15 @@ def run_chunk(
     """Run ``S`` BPR/RMSProp steps on the given triplets, updating
     ``tables`` in place; returns the summed loss as a 0-d tensor on the
     device (no host sync)."""
-    lu, li, lj, lb, lr = (hyper[n] for n in ("lu", "li", "lj", "lb", "lr"))
-    k = tables.k
     b = u_steps.shape[1]
-    uniq_u, seg_u = plan_sparse_updates(u_steps)
-    uniq_ij, seg_ij = plan_sparse_updates(torch.cat([i_steps, j_steps], 1))
-    losses = []
-    for s in range(u_steps.shape[0]):
-        with span("train.step"):
-            # one gather of unique rows per table; the rows of each
-            # occurrence come from those (bpr.py:256-268)
-            rows_u, acc_u = planned_rows(tables.ue, tables.ms_u, uniq_u[s])
-            rows_ij, acc_ij = planned_rows(tables.iet, tables.ms_it,
-                                           uniq_ij[s])
-            with torch.enable_grad():
-                pu = rows_u[seg_u[s]].requires_grad_()
-                pit = rows_ij[seg_ij[s, :b]].requires_grad_()
-                pjt = rows_ij[seg_ij[s, b:]].requires_grad_()
-                with span("train.grad"):
-                    loss = _pairwise_loss(pu, pit, pjt, lu, li, lj, lb,
-                                          mode, k)
-                    gu, gi, gj = torch.autograd.grad(loss, (pu, pit, pjt))
-            agg_u = torch.zeros_like(rows_u).index_add_(0, seg_u[s], gu)
-            agg_ij = torch.zeros_like(rows_ij).index_add_(
-                0, seg_ij[s], torch.cat([gi, gj]))
-            apply_planned_rmsprop(tables.ue, tables.ms_u, uniq_u[s], rows_u,
-                                  acc_u, agg_u, lr)
-            apply_planned_rmsprop(tables.iet, tables.ms_it, uniq_ij[s],
-                                  rows_ij, acc_ij, agg_ij, lr)
-            losses.append(loss.detach())
-    return torch.stack(losses).sum()
+    return run_planned_steps(
+        [SparseTable(tables.ue, tables.ms_u, u_steps, (Leaf(0, b),)),
+         SparseTable(tables.iet, tables.ms_it,
+                     torch.cat([i_steps, j_steps], 1),
+                     (Leaf(0, b), Leaf(b, 2 * b)))],
+        (), _pairwise_loss, (hyper["lu"], hyper["li"], hyper["lj"],
+                             hyper["lb"], mode, tables.k),
+        apply_planned_rmsprop, None, hyper["lr"])
 
 
 def run_chunk_fused(
@@ -181,36 +137,24 @@ def run_chunk_fused(
     mode: str,
 ) -> torch.Tensor:
     """:func:`run_chunk` on one [n_users + n_items, k + 1] table built for
-    the chunk (bpr.py:172-240); the result is written back into ``tables``.
+    the chunk (bpr.py:172-240) at [u ‖ i + n_users ‖ j + n_users]; the
+    result is written back into ``tables``.
 
-    The user rows' bias column is never read by the loss, so its gradient
-    is 0 and RMSProp keeps it, and its accumulator, at exactly 0."""
-    lu, li, lj, lb, lr = (hyper[n] for n in ("lu", "li", "lj", "lb", "lr"))
-    k = tables.k
-    n_users = tables.ue.shape[0]
+    The user leaf reads the first ``k`` columns, so the user rows' bias
+    column gets a zero gradient and RMSProp keeps it, and its accumulator,
+    at exactly 0."""
+    n_users, k = tables.ue.shape
     b = u_steps.shape[1]
-    uniq, seg = plan_sparse_updates(
-        torch.cat([u_steps, i_steps + n_users, j_steps + n_users], 1))
+    idx = torch.cat([u_steps, i_steps + n_users, j_steps + n_users], 1)
     tbl, mtbl = fuse_tables(tables)
-    losses = []
-    for s in range(u_steps.shape[0]):
-        with span("train.step"):
-            rows, acc = planned_rows(tbl, mtbl, uniq[s])
-            with torch.enable_grad():
-                pu = rows[seg[s, :b], :k].requires_grad_()
-                pit = rows[seg[s, b:2 * b]].requires_grad_()
-                pjt = rows[seg[s, 2 * b:]].requires_grad_()
-                with span("train.grad"):
-                    loss = _pairwise_loss(pu, pit, pjt, lu, li, lj, lb,
-                                          mode, k)
-                    gu, gi, gj = torch.autograd.grad(loss, (pu, pit, pjt))
-            # in the plan's order [u | i | j], the users' bias gradient 0
-            agg = torch.zeros_like(rows).index_add_(
-                0, seg[s], torch.cat([F.pad(gu, (0, 1)), gi, gj]))
-            apply_planned_rmsprop(tbl, mtbl, uniq[s], rows, acc, agg, lr)
-            losses.append(loss.detach())
+    loss = run_planned_steps(
+        [SparseTable(tbl, mtbl, idx,
+                     (Leaf(0, b, k), Leaf(b, 2 * b), Leaf(2 * b, 3 * b)))],
+        (), _pairwise_loss, (hyper["lu"], hyper["li"], hyper["lj"],
+                             hyper["lb"], mode, k),
+        apply_planned_rmsprop, None, hyper["lr"])
     unfuse_tables(tables, tbl, mtbl)
-    return torch.stack(losses).sum()
+    return loss
 
 
 def fuse_tables(tables: BPRTables) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -247,7 +191,7 @@ def fused_layout(table_layout: str, batch_size: int, n_rows: int) -> bool:
         and n_rows <= _FUSED_LAYOUT_MAX_ROWS)
 
 
-class BPR(Recommender):
+class BPR(PairwiseRecommender):
     """Bayesian Personalized Ranking with device-side sampling.
 
     Defaults mirror reference single/bpr.py:20: lambda_u = lambda_i =
@@ -255,6 +199,8 @@ class BPR(Recommender):
     ``membership`` picks the sampler's store (``ops/sampling.py``);
     ``table_layout`` is "separate", "fused" or "auto" (:func:`fused_layout`).
     """
+
+    SCAN_STEPS = 128  # JAX's default for BPR
 
     def __init__(
         self,
@@ -271,35 +217,13 @@ class BPR(Recommender):
         membership: str = "auto",
         device="cuda",
     ):
-        super().__init__(k, device)
-        if mode not in ("l2", "l1"):
-            raise ValueError(f"mode must be l2|l1, got {mode!r}")
+        super().__init__(k, lambda_u, lambda_i, lambda_j, lambda_b, lr, mode,
+                         seed, k_candidates, membership, device)
         if table_layout not in ("auto", "separate", "fused"):
             raise ValueError(
                 f"table_layout must be auto|separate|fused, got "
                 f"{table_layout!r}")
-        if membership not in ("auto", "bitmap", "sorted"):
-            raise ValueError(
-                f"membership must be auto|bitmap|sorted, got {membership!r}")
-        self.lu, self.li, self.lj, self.lb = (lambda_u, lambda_i, lambda_j,
-                                              lambda_b)
-        self.lr = lr
-        self.mode = mode
-        self.seed = seed
-        self.k_candidates = k_candidates
         self.table_layout = table_layout
-        self.membership = membership
-        self.sampler: Optional[TripletSampler] = None
-        self.tables: Optional[BPRTables] = None
-
-    def _on_data_loaded(self) -> None:
-        self.sampler = TripletSampler(self.inter, self.k_candidates,
-                                      membership=self.membership,
-                                      device=self.device)
-
-    def hyper(self) -> Dict[str, float]:
-        return {"lu": self.lu, "li": self.li, "lj": self.lj, "lb": self.lb,
-                "lr": self.lr}
 
     # ---- parameter init / sync ----
 
@@ -328,17 +252,24 @@ class BPR(Recommender):
 
     # ---- training ----
 
-    def sample_chunk(self, gen: torch.Generator, n_steps: int,
-                     batch_size: int) -> Tuple[torch.Tensor, ...]:
-        """(u, i, j), each [n_steps, batch_size], in one sampler call."""
-        with span("train.sample"):
-            trip = self.sampler(gen, n_steps * batch_size)
-        return tuple(t.view(n_steps, batch_size) for t in trip)
-
     def picks_fused(self, batch_size: int) -> bool:
         """Whether :meth:`train` runs the fused layout at ``batch_size``."""
         return fused_layout(self.table_layout, batch_size,
                             self.n_users + self.n_items)
+
+    def _chunk_args(self, batch_size: int) -> tuple:
+        return (self.picks_fused(batch_size),)
+
+    def _print_header(self, epochs: int, batches: int, batch_size: int,
+                      scan_steps: int, fused: bool) -> None:
+        tprint("Training parameters: lu=%.6f, li=%.6f, lj=%.6f, lb=%.6f"
+               % (self.lu, self.li, self.lj, self.lb))
+        tprint("Learning rate is %.6f, regularization mode is %s"
+               % (self.lr, self.mode))
+        tprint("Training for %d epochs of %d batches (batch %d, %d per "
+               "chunk) on %s, %s tables"
+               % (epochs, batches, batch_size, scan_steps, self.device,
+                  "fused" if fused else "separate"))
 
     def train_chunk(self, gen: torch.Generator, n_steps: int,
                     batch_size: int, fused: bool = False) -> torch.Tensor:
@@ -348,73 +279,6 @@ class BPR(Recommender):
             u, i, j = self.sample_chunk(gen, n_steps, batch_size)
             chunk = run_chunk_fused if fused else run_chunk
             return chunk(self.tables, u, i, j, self.hyper(), self.mode)
-
-    def train(
-        self,
-        epochs: int = 5,
-        batch_size: int = 256,
-        epoch_sample_limit: Optional[int] = None,
-        model_path: Optional[str] = None,
-        scan_steps: int = 128,
-        verbose: bool = True,
-        ckpt_dir: Optional[str] = None,
-        ckpt_every: int = 1,
-    ) -> None:
-        """Reference-parity training loop (bpr.py:436-559).
-
-        Each epoch runs ``epoch_sample_limit // batch_size + 1`` batches
-        (default limit: the positive pairs, ref bpr.py:113), rounded up to
-        whole chunks of ``scan_steps``. ``model_path`` warm-starts from
-        exported tables. ``ckpt_dir`` saves tables and accumulators every
-        ``ckpt_every`` epochs and resumes from the latest checkpoint, which
-        reproduces the uninterrupted run. One host sync per epoch reads the
-        loss.
-        """
-        if self.inter is None:
-            raise ValueError("no training data loaded")
-        if epoch_sample_limit is None:
-            epoch_sample_limit = self.inter.nnz
-        batch_limit = int(epoch_sample_limit) // batch_size + 1
-        if model_path is not None:
-            tprint("Initialize weights with the previous trained model")
-            self.import_embeddings(model_path)
-        self._init_params(stream_generator(self.seed, INIT_STREAM,
-                                           self.device))
-        start_epoch = 0
-        mgr = None
-        if ckpt_dir is not None:
-            mgr = CheckpointManager(ckpt_dir, save_every=ckpt_every)
-            latest = mgr.latest_step()
-            if latest is not None:
-                state = mgr.restore(latest)
-                self.tables.load(state["params"], state["ms"])
-                start_epoch = latest
-                if verbose:
-                    tprint(f"Resuming from checkpointed epoch {latest}")
-        n_chunks = max(1, -(-batch_limit // scan_steps))
-        fused = self.picks_fused(batch_size)
-        if verbose:
-            tprint("Training parameters: lu=%.6f, li=%.6f, lj=%.6f, lb=%.6f"
-                   % (self.lu, self.li, self.lj, self.lb))
-            tprint("Learning rate is %.6f, regularization mode is %s"
-                   % (self.lr, self.mode))
-            tprint("Training for %d epochs of %d batches (batch %d, %d per "
-                   "chunk) on %s, %s tables"
-                   % (epochs, n_chunks * scan_steps, batch_size, scan_steps,
-                      self.device, "fused" if fused else "separate"))
-        for eid in range(start_epoch, epochs):
-            t0 = time.time()
-            gen = stream_generator(self.seed, eid, self.device)
-            losses = [self.train_chunk(gen, scan_steps, batch_size, fused)
-                      for _ in range(n_chunks)]
-            total_loss = float(torch.stack(losses).sum())
-            if verbose:
-                tprint("Epoch %3d, loss %.4f, time %.3fs"
-                       % (eid + 1, total_loss, time.time() - t0))
-            if mgr is not None:
-                mgr.save(eid + 1, {"params": self.tables.params(),
-                                   "ms": self.tables.ms()})
-        self._sync_host()
 
     # ---- native checkpoint ----
 

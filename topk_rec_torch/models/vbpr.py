@@ -7,43 +7,33 @@ plus the projection of its features F[i]·cem and a content bias F[i]·icb
 (reference single/vbpr.py:37-75). ``full_k`` gives both halves the whole
 width k, the legacy layout (reference old/methods/vbpr.py:37-43).
 
-The step follows ``models/bpr.py``: :meth:`VBPR.sample_chunk` draws a
-chunk's triplets in one sampler call and :func:`run_chunk` runs the steps,
-with fused row layouts as in JAX (vbpr.py:147-153): the user table is
-[ure ‖ uce] and the item table [ire ‖ irb], one planned gather and one
-sparse RMSProp update each per step. The features F stay on the device for
-the whole ``train``; each step gathers the rows F[i], F[j] (2 × batch × d
-floats), takes the gradients of :func:`_vbpr_loss` with
-``torch.autograd.grad`` on the gathered rows and on ``cem``/``icb``, sums
-the row gradients with ``index_add_`` and applies dense RMSProp to
-``cem``/``icb`` (vbpr.py:112-114).
+The sampler, the step loop and the epoch loop are the pairwise trainers'
+(``models/pairwise.py``), as for BPR. VBPR owns its loss
+(:func:`_vbpr_loss`), its tables (:class:`VBPRTables`: users [ure ‖ uce]
+and items [ire ‖ irb], JAX's row layouts, vbpr.py:147-153), its header
+lines, and :func:`run_chunk`: both tables' rows, the content rows F[i],
+F[j] (2 × batch × d floats), and ``cem``/``icb`` as dense parameters
+under dense RMSProp (vbpr.py:112-114). F stays on the device for the
+whole ``train``.
 
 Export composes the whole catalog (vbpr.py:470-477): final-U = [ure ‖ uce],
 final-V = [ire ‖ F·cem], final-B = irb + F·icb, so cold-start items are
-scored through their features. Random streams are the port's own, as in
-``models/bpr.py``: not JAX's threefry.
+scored through their features. Random streams are the port's own
+(``models/pairwise.py``): not JAX's threefry.
 """
 
 from __future__ import annotations
 
-import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..checkpoint import CheckpointManager
-from ..ops.sampling import TripletSampler
-from ..ops.sparse_update import (
-    apply_planned_rmsprop,
-    plan_sparse_updates,
-    planned_rows,
-)
+from ..ops.sparse_update import apply_planned_rmsprop
 from ..tracing import span
 from ..utils import tprint
-from .base import Recommender
-from .bpr import INIT_STREAM, stream_generator
+from .pairwise import Leaf, PairwiseRecommender, SparseTable, run_planned_steps
 
 NAMES = ("ure", "uce", "ire", "irb", "cem", "icb")  # JAX's _params keys
 
@@ -146,49 +136,26 @@ def run_chunk(
     """Run ``S`` VBPR/RMSProp steps on the given triplets, updating
     ``tables`` in place; returns the summed loss as a 0-d tensor on the
     device (no host sync)."""
-    lr = hyper["lr"]
-    kh = tables.kh
     b = u_steps.shape[1]
-    uniq_u, seg_u = plan_sparse_updates(u_steps)
-    uniq_ij, seg_ij = plan_sparse_updates(torch.cat([i_steps, j_steps], 1))
-    losses = []
-    for s in range(u_steps.shape[0]):
-        with span("train.step"):
-            ic = feat[i_steps[s]]
-            jc = feat[j_steps[s]]
-            rows_u, acc_u = planned_rows(tables.ut, tables.ms_ut, uniq_u[s])
-            rows_ij, acc_ij = planned_rows(tables.it, tables.ms_it,
-                                           uniq_ij[s])
-            with torch.enable_grad():
-                put = rows_u[seg_u[s]].requires_grad_()
-                pit = rows_ij[seg_ij[s, :b]].requires_grad_()
-                pjt = rows_ij[seg_ij[s, b:]].requires_grad_()
-                cem = tables.cem.detach().requires_grad_()
-                icb = tables.icb.detach().requires_grad_()
-                with span("train.grad"):
-                    loss = _vbpr_loss(put, pit, pjt, cem, icb, ic, jc, hyper,
-                                      mode, kh)
-                    gu, gi, gj, g_cem, g_icb = torch.autograd.grad(
-                        loss, (put, pit, pjt, cem, icb))
-            agg_u = torch.zeros_like(rows_u).index_add_(0, seg_u[s], gu)
-            agg_ij = torch.zeros_like(rows_ij).index_add_(
-                0, seg_ij[s], torch.cat([gi, gj]))
-            apply_planned_rmsprop(tables.ut, tables.ms_ut, uniq_u[s], rows_u,
-                                  acc_u, agg_u, lr)
-            apply_planned_rmsprop(tables.it, tables.ms_it, uniq_ij[s],
-                                  rows_ij, acc_ij, agg_ij, lr)
-            _rms_dense(tables.cem, tables.ms_cem, g_cem, lr)
-            _rms_dense(tables.icb, tables.ms_icb, g_icb, lr)
-            losses.append(loss.detach())
-    return torch.stack(losses).sum()
+    return run_planned_steps(
+        [SparseTable(tables.ut, tables.ms_ut, u_steps, (Leaf(0, b),)),
+         SparseTable(tables.it, tables.ms_it,
+                     torch.cat([i_steps, j_steps], 1),
+                     (Leaf(0, b), Leaf(b, 2 * b)))],
+        ((tables.cem, tables.ms_cem), (tables.icb, tables.ms_icb)),
+        _vbpr_loss, (hyper, mode, tables.kh), apply_planned_rmsprop,
+        _rms_dense, hyper["lr"],
+        inputs=lambda s: (feat[i_steps[s]], feat[j_steps[s]]))
 
 
-class VBPR(Recommender):
+class VBPR(PairwiseRecommender):
     """Content-aware BPR with split rating/content factors.
 
     Defaults mirror reference vbpr.py:18 (lambda_e = 0 included);
     ``membership`` picks the sampler's store, as for ``BPR``.
     """
+
+    SCAN_STEPS = 64  # JAX's default for VBPR
 
     def __init__(
         self,
@@ -207,30 +174,13 @@ class VBPR(Recommender):
         membership: str = "auto",
         device="cuda",
     ):
-        super().__init__(k, device)
-        if mode not in ("l2", "l1"):
-            raise ValueError(f"mode must be l2|l1, got {mode!r}")
-        if membership not in ("auto", "bitmap", "sorted"):
-            raise ValueError(
-                f"membership must be auto|bitmap|sorted, got {membership!r}")
+        super().__init__(k, lambda_u, lambda_i, lambda_j, lambda_b, lr, mode,
+                         seed, k_candidates, membership, device)
         self.d = d
         self.full_k = full_k
-        self.lu, self.li, self.lj, self.lb, self.le = (
-            lambda_u, lambda_i, lambda_j, lambda_b, lambda_e)
-        self.lr = lr
-        self.mode = mode
-        self.seed = seed
-        self.k_candidates = k_candidates
-        self.membership = membership
-        self.sampler: Optional[TripletSampler] = None
-        self.tables: Optional[VBPRTables] = None
+        self.le = lambda_e
         self._feat_dev: Optional[torch.Tensor] = None
         self._pending_state: Optional[Dict[str, np.ndarray]] = None
-
-    def _on_data_loaded(self) -> None:
-        self.sampler = TripletSampler(self.inter, self.k_candidates,
-                                      membership=self.membership,
-                                      device=self.device)
 
     def set_features(self, feat) -> None:
         super().set_features(feat)
@@ -242,8 +192,7 @@ class VBPR(Recommender):
         return self._feat_dev
 
     def hyper(self) -> Dict[str, float]:
-        return {"lu": self.lu, "li": self.li, "lj": self.lj, "lb": self.lb,
-                "le": self.le, "lr": self.lr}
+        return {**super().hyper(), "le": self.le}
 
     # ---- parameter init / sync ----
 
@@ -294,12 +243,18 @@ class VBPR(Recommender):
 
     # ---- training ----
 
-    def sample_chunk(self, gen: torch.Generator, n_steps: int,
-                     batch_size: int) -> Tuple[torch.Tensor, ...]:
-        """(u, i, j), each [n_steps, batch_size], in one sampler call."""
-        with span("train.sample"):
-            trip = self.sampler(gen, n_steps * batch_size)
-        return tuple(t.view(n_steps, batch_size) for t in trip)
+    def _check_data(self) -> None:
+        if self.inter is None or self.feat is None:
+            raise ValueError("VBPR needs training data and features")
+
+    def _print_header(self, epochs: int, batches: int, batch_size: int,
+                      scan_steps: int) -> None:
+        tprint("Training parameters: lu=%.6f, li=%.6f, lj=%.6f, "
+               "lb=%.6f, le=%.6f"
+               % (self.lu, self.li, self.lj, self.lb, self.le))
+        tprint("Training for %d epochs of %d batches (batch %d, %d per "
+               "chunk) on %s" % (epochs, batches, batch_size, scan_steps,
+                                 self.device))
 
     def train_chunk(self, gen: torch.Generator, n_steps: int,
                     batch_size: int) -> torch.Tensor:
@@ -309,65 +264,8 @@ class VBPR(Recommender):
             return run_chunk(self.tables, self._feat_device(), u, i, j,
                              self.hyper(), self.mode)
 
-    def train(
-        self,
-        epochs: int = 5,
-        batch_size: int = 256,
-        epoch_sample_limit: Optional[int] = None,
-        model_path: Optional[str] = None,
-        scan_steps: int = 64,
-        verbose: bool = True,
-        ckpt_dir: Optional[str] = None,
-        ckpt_every: int = 1,
-    ) -> None:
-        """Reference-parity training loop (vbpr.py:373-468), as
-        ``BPR.train``: ``epoch_sample_limit // batch_size + 1`` batches an
-        epoch rounded up to whole chunks of ``scan_steps`` (64, JAX's
-        default for VBPR), warm start from ``model_path``, crash-resume
-        from ``ckpt_dir``, one host sync per epoch. F is released from the
-        device after the export tables are composed."""
-        if self.inter is None or self.feat is None:
-            raise ValueError("VBPR needs training data and features")
-        if epoch_sample_limit is None:
-            epoch_sample_limit = self.inter.nnz
-        batch_limit = int(epoch_sample_limit) // batch_size + 1
-        if model_path is not None:
-            tprint("Initialize weights with the previous trained model")
-            self.import_embeddings(model_path)
-        self._init_params(stream_generator(self.seed, INIT_STREAM,
-                                           self.device))
-        start_epoch = 0
-        mgr = None
-        if ckpt_dir is not None:
-            mgr = CheckpointManager(ckpt_dir, save_every=ckpt_every)
-            latest = mgr.latest_step()
-            if latest is not None:
-                state = mgr.restore(latest)
-                self.tables.load(state["params"], state["ms"])
-                start_epoch = latest
-                if verbose:
-                    tprint(f"Resuming from checkpointed epoch {latest}")
-        n_chunks = max(1, -(-batch_limit // scan_steps))
-        if verbose:
-            tprint("Training parameters: lu=%.6f, li=%.6f, lj=%.6f, "
-                   "lb=%.6f, le=%.6f"
-                   % (self.lu, self.li, self.lj, self.lb, self.le))
-            tprint("Training for %d epochs of %d batches (batch %d, %d per "
-                   "chunk) on %s" % (epochs, n_chunks * scan_steps,
-                                     batch_size, scan_steps, self.device))
-        for eid in range(start_epoch, epochs):
-            t0 = time.time()
-            gen = stream_generator(self.seed, eid, self.device)
-            losses = [self.train_chunk(gen, scan_steps, batch_size)
-                      for _ in range(n_chunks)]
-            total_loss = float(torch.stack(losses).sum())
-            if verbose:
-                tprint("Epoch %3d, loss %.4f, time %.3fs"
-                       % (eid + 1, total_loss, time.time() - t0))
-            if mgr is not None:
-                mgr.save(eid + 1, {"params": self.tables.params(),
-                                   "ms": self.tables.ms()})
-        self._sync_host()
+    def _release(self) -> None:
+        """F leaves the device once the export tables are composed."""
         self._feat_dev = None
 
     # ---- native checkpoint: dense params + accumulators ----
