@@ -77,14 +77,16 @@ without the final ``ok`` line):
    ``topk_rec_torch.cli.main`` at k = 50, ``train --model vbpr`` (one
    epoch's pairs at batch 256 as two half epochs, lr 0.05, lambda_b
    0.01), ``wmf`` (5 iterations) and ``cer`` (3 iterations, the
-   Woodbury-CG E-solve, ``--log-dir`` and ``--save-lag 1``), each also
-   untrained; losses finite and falling, the
-   model files written, CER's E-solves all by CG; then ``evaluate -sl zp
+   Woodbury E-solve on its Cholesky factor, ``--log-dir`` and
+   ``--save-lag 1``), each also untrained; losses finite and falling, the
+   model files written, CER's system factored once and its E-solves all on
+   the factor; then ``evaluate -sl zp
    zom`` of every table set with ``--engine kernel`` (K1's count must
    rise) and of the trained ones with ``--engine torch`` (the engines
    agree within 2/count); trained beats untrained on zp for all three and
    on zom for VBPR and CER. Then the layers' times: VBPR ms and launches
-   per step, one ALS half-sweep per side, CER's E-solve and its CG steps;
+   per step, one ALS half-sweep per side, CER's Gram and factor and its
+   E-solve;
 10. "dpm": through ``topk_rec_torch.cli.main`` at k = 50 on phase 9's
    ``meta.pkl`` (d = 20,000), ``train --model dpm`` with the MLP encoder
    (d -> 2000 -> 1000 -> 50, 5 iterations, ``--log-dir``, ``--save-lag 1``)
@@ -1463,8 +1465,8 @@ def content_train(dev, root, n_pos):
         untrained = os.path.join(root, name + "0")
         common = ["train", "--model", name, "-d", root, "--k",
                   str(CONTENT_K), "--device", str(dev)]
-        with counted(tcer, "_ridge_woodbury_cg", "_ridge_direct",
-                     "_ridge_woodbury_direct") as solves:
+        with counted(tcer, "_woodbury_factor", "_ridge_woodbury_factored",
+                     "_ridge_direct", "_ridge_woodbury_direct") as solves:
             lines, wall = run_cli(common + ["-o", trained] + flags)
         hits = [m for m in map((EPOCH_RE if name == "vbpr"
                                 else ITER_RE).search, lines) if m]
@@ -1475,7 +1477,8 @@ def content_train(dev, root, n_pos):
                       s_per_iter="|".join(m.group(2) for m in hits),
                       cut=cut.replace(" ", "_"))
         if name == "cer":
-            fields.update(e_solves_cg=solves["_ridge_woodbury_cg"],
+            fields.update(e_factors=solves["_woodbury_factor"],
+                          e_solves=solves["_ridge_woodbury_factored"],
                           e_solves_direct=solves["_ridge_direct"]
                           + solves["_ridge_woodbury_direct"])
         phase("content_train", **fields)
@@ -1491,9 +1494,11 @@ def content_train(dev, root, n_pos):
         for f in files:
             if not os.path.exists(os.path.join(trained, f)):
                 raise AssertionError(f"train --model {name} wrote no {f}")
-        if name == "cer" and (solves["_ridge_woodbury_cg"] != want
+        if name == "cer" and (solves["_woodbury_factor"] != 1
+                              or solves["_ridge_woodbury_factored"] != want
                               or fields["e_solves_direct"]):
-            raise AssertionError(f"CER left the Woodbury-CG path: {solves}")
+            raise AssertionError(f"CER left the factored Woodbury path: "
+                                 f"{solves}")
         run_cli(common + ["-o", untrained] + flags0)
         dirs[name] = (trained, untrained)
     return dirs
@@ -1553,8 +1558,8 @@ def content_rates(dev, root, feat):
     """Phase 9c: the layers' times on the card. VBPR: CUDA events over
     whole 64-step chunks at batch 256 after a warm-up chunk, and a
     torch.profiler count of launches per step. WMF: one half-sweep of each
-    side (the pair sums are a CSR product per block). CER: the E-solve by
-    Woodbury-CG on the cached G, with its CG steps."""
+    side (the pair sums are a CSR product per block). CER: G = F·Fᵀ with
+    the Cholesky factor of le·I + lv·G, then the E-solve on that factor."""
     from topk_rec_torch.cli import _load_fold
     from topk_rec_torch.models import CER, VBPR, WMF
     from topk_rec_torch.models.bpr import INIT_STREAM, stream_generator
@@ -1611,16 +1616,16 @@ def content_rates(dev, root, feat):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    cer._gram_items = cer._feat_device() @ cer._feat_device().T
+    cer._woodbury_system(cer._feat_device())
     end.record()
     end.synchronize()
     gram_ms = start.elapsed_time(end)
     solve_ms = cuda_median_ms(lambda: cer._solve_E(Y), reps=5, warmup=1)
-    if cer._e_solver_use_direct or not cer.e_solver_steps:
-        raise AssertionError("the E-solve left the Woodbury-CG path")
+    if cer._e_solver_use_direct or cer._factor is None:
+        raise AssertionError("the E-solve left the factored Woodbury path")
     phase("content_e_solve", d=CONTENT_D, n_items=N_ITEMS, k=CONTENT_K,
-          route="woodbury_cg", cg_steps=cer.e_solver_steps,
-          gram_ms=f"{gram_ms:.4f}", e_solve_ms=f"{solve_ms:.4f}")
+          route="woodbury_factor", gram_factor_ms=f"{gram_ms:.4f}",
+          e_solve_ms=f"{solve_ms:.4f}")
 
 
 def content_path(dev, root):

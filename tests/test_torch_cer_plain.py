@@ -5,7 +5,8 @@ and without items nobody rated.
 Each case: 300 users x 120 items, k = 8, three iterations at the
 reference's settings (lu 0.01, lv 10, le 1e4, a 1, b 0.01), blocks of 64
 slots. The route is the program's own choice: d = 40 ≤ n_items solves the
-d x d system, d = 400 > n_items runs Woodbury-CG. With "cold" the last 20
+d x d system, d = 400 > n_items ("cg") the Woodbury form on its Cholesky
+factor. With "cold" the last 20
 items have no training pair, so the item half-sweep solves them from the
 prior alone and the write-back replaces them by F·E.
 
@@ -15,8 +16,7 @@ cases:
 - the losses: 5e-6. The port's losses are float32 sums of about 3·10⁴
   terms read from ``state.log`` (11 digits); they lie within 3e-7;
 - V and E: 1e-5. Float32 solves of systems the priors keep well
-  conditioned (lv = 10) and CG run to a relative residual of 1e-6; they lie
-  within 1.4e-6;
+  conditioned (lv = 10); they lie within 1.4e-6;
 - U: 3e-4. The user systems carry only lu = 0.01 on the diagonal, the
   worst conditioned of the run: float32 rounding grows by the condition
   number, and U lies within 5.2e-5.
@@ -76,7 +76,7 @@ def test_cer_train_equals_plain_float64(tmp_path, d, route, cold):
         (d, K)).astype(np.float32)
     model.train(max_iter=N_ITER, tol=0.0, verbose=False,
                 log_dir=str(tmp_path))
-    assert (model.e_solver_steps > 0) == (route == "cg")
+    assert model.e_solver_steps == 0
     assert not model._e_solver_use_direct
 
     ref = PlainCER(torch.as_tensor(tr.pos_u), torch.as_tensor(tr.pos_i),

@@ -67,7 +67,7 @@ def fold_dir(tmp_path_factory):
             ",".join([uid_names[u]] + [f"{vid_names[i]}:1" for i in liked])
         )
     (root / "f0te.om.txt").write_text("\n".join(omlines) + "\n")
-    # item features in vid order, wider than the catalog (CER's CG route)
+    # item features in vid order, wider than the catalog (the Woodbury route)
     with open(root / "meta.pkl", "wb") as f:
         pickle.dump(rng.normal(size=(n_items, CONTENT_D)).astype(np.float32),
                     f)

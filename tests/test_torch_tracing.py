@@ -261,32 +261,23 @@ def test_evaluate_spans_and_same_output(fold_dir, capsys):
     assert each_inside(spans, "eval.like_bitmap", "eval.count_hits")
 
 
-def _cer(inter, d, iters=60):
+def _cer(inter, d, le=10e3):
     from topk_rec_torch.models import CER
 
-    m = CER(k=6, d=d, seed=2, block_size=16, device="cpu")
+    m = CER(k=6, d=d, le=le, seed=2, block_size=16, device="cpu")
     m.set_interactions(inter)
     m.set_features(synthetic_features(inter, d=d, seed=6))
-    m.e_solver_iters = iters
-    steps = []  # the CG steps of each E-solve, as the model counts them
-    solve = m._solve_E
-
-    def counted(Y):
-        E = solve(Y)
-        steps.append(m.e_solver_steps)
-        return E
-
-    m._solve_E = counted
-    return m, steps
+    return m
 
 
 def test_cer_train_spans(inter):
-    """d > n_items: the Woodbury-CG route, three iterations."""
-    m, steps = _cer(inter, d=120)
+    """d > n_items: the Woodbury route on its Cholesky factor, three
+    iterations."""
+    m = _cer(inter, d=120)
     _, spans = traced(lambda: m.train(max_iter=3, tol=0.0, verbose=False))
     iters = named(spans, "cer.iter")
     assert len(iters) == 3
-    for name in ("cer.features", "cer.gram", "cer.writeback"):
+    for name in ("cer.features", "cer.gram", "cer.factor", "cer.writeback"):
         assert len(named(spans, name)) == 1, name
     assert not any(inside(s, it) for it in iters
                    for s in named(spans, "cer.features")
@@ -295,11 +286,9 @@ def test_cer_train_spans(inter):
     assert len(esolves) == 3 and all(inside(e, it)
                                      for e, it in zip(esolves, iters))
     assert inside(named(spans, "cer.gram")[0], esolves[0])
-    # each E-solve holds as many step spans as CG took steps
-    assert steps and all(s > 0 for s in steps)
-    assert len(named(spans, "cer.cg_step")) == sum(steps)
-    assert [sum(inside(c, e) for c in named(spans, "cer.cg_step"))
-            for e in esolves] == steps
+    # one factor a call, in the first E-solve's Gram; no iterative steps
+    assert inside(named(spans, "cer.factor")[0], named(spans, "cer.gram")[0])
+    assert named(spans, "cer.cg_step") == [] and m.e_solver_steps == 0
     assert named(spans, "cer.esolve_direct") == []
     assert each_inside(spans, "cer.loss", "cer.iter")
     sweeps = named(spans, "als.half_sweep")
@@ -314,21 +303,25 @@ def test_cer_train_spans(inter):
 
 
 def test_cer_fallback_span_counts_the_direct_solves(inter):
-    """A CG budget of one step: the first E-solve falls back, and the
-    later ones go straight to the direct solve."""
-    m, steps = _cer(inter, d=120, iters=1)
-    with pytest.warns(RuntimeWarning, match="did not converge"):
-        _, spans = traced(lambda: m.train(max_iter=3, tol=0.0,
+    """le = -1e5 makes le·I + lv·F·Fᵀ negative definite: the first E-solve's
+    factor fails and every E-solve is a direct solve."""
+    m = _cer(inter, d=120, le=-1e5)
+    # le < 0 makes the loss negative, and with it the relative change the
+    # convergence test reads: a tol of -inf runs all three iterations
+    with pytest.warns(RuntimeWarning, match="no Cholesky factor"):
+        _, spans = traced(lambda: m.train(max_iter=3, tol=-np.inf,
                                           verbose=False))
     direct = named(spans, "cer.esolve_direct")
     assert len(direct) == 3 and each_inside(spans, "cer.esolve_direct",
                                             "cer.esolve")
-    assert len(named(spans, "cer.cg_step")) == sum(steps) == 1
+    assert len(named(spans, "cer.factor")) == 1
+    assert each_inside(spans, "cer.factor", "cer.gram")
+    assert named(spans, "cer.cg_step") == []
 
 
 def test_cer_train_bitwise_equal_with_spans_on(inter):
-    plain, _ = _cer(inter, d=120)
-    spanned, _ = _cer(inter, d=120)
+    plain = _cer(inter, d=120)
+    spanned = _cer(inter, d=120)
     plain.train(max_iter=2, tol=0.0, verbose=False)
     with recording():
         traced(lambda: spanned.train(max_iter=2, tol=0.0, verbose=False))

@@ -12,9 +12,9 @@ Tolerances:
   table's largest entry (on the WMF fold each package lies about 5e-5 from
   a float64 solve of the same iterations, and 2e-5 from the other, for
   entries up to 1.05), and the ``state.log`` likelihoods to rtol 1e-4;
-- the E-solves on the same inputs: rtol 1e-4, atol 1e-6;
-- the CG fallback's E against the exact Woodbury solve: the tolerance of
-  ``tests/test_models.py:420``, rtol 2e-3 / atol 2e-5;
+- the E-solves on the same inputs: rtol 1e-4, atol 1e-6 (JAX's
+  Woodbury-CG stops at a relative residual of 1e-6; the port's Cholesky
+  factor and both packages' LU solve the same system exactly in float32);
 - ``.dat`` files hold six decimals: atol 6e-7, plus rtol 2e-7 for the
   fp32 rounding of the value read back (E has entries near 30).
 """
@@ -168,8 +168,9 @@ def test_wmf_theta_prior_and_loss(cold_fold):
 @pytest.mark.parametrize("d,route", [(40, "direct"), (128, "cg")])
 def test_cer_train_equals_jax(cold_fold, tmp_path, d, route):
     """Three iterations from the same init on both E routes (d ≤ n_items:
-    the d×d solve; d > n_items: Woodbury by CG), then the cold-start
-    write-back fie[unrated] = (F·E)[unrated]."""
+    the d×d solve; d > n_items, "cg": the Woodbury form, which the port
+    solves on its Cholesky factor and JAX, held to its exact route, by LU),
+    then the cold-start write-back fie[unrated] = (F·E)[unrated]."""
     tr, full = cold_fold
     feat = _features(full, d)
     runs = {}
@@ -178,14 +179,16 @@ def test_cer_train_equals_jax(cold_fold, tmp_path, d, route):
         m = cls(k=8, d=d, lv=10.0, le=100.0, seed=11, block_size=64, **kw)
         m.set_interactions(tr if name == "jax" else _port(tr))
         m.set_features(feat)
+        if name == "jax":
+            m._e_solver_use_direct = True  # JAX's exact Woodbury solve
         out = str(tmp_path / name)
         with warnings.catch_warnings():
-            warnings.simplefilter("error")  # CG converges: no fallback
+            warnings.simplefilter("error")  # the port's factor: no fallback
             m.train(max_iter=3, tol=0.0, verbose=False, log_dir=out,
                     save_lag=1, save_dir=out)
         runs[name] = (m, out)
     (jm, jdir), (tm, tdir) = runs["jax"], runs["port"]
-    assert (tm.e_solver_steps > 0) == (route == "cg")
+    assert tm.e_solver_steps == 0
     assert not tm._e_solver_use_direct
     _close(tm.E, jm.E)
     _close(tm.fue, jm.fue)
@@ -196,7 +199,41 @@ def test_cer_train_equals_jax(cold_fold, tmp_path, d, route):
     assert unrated.size >= 20
     np.testing.assert_allclose(tm.fie[unrated], (feat @ tm.E)[unrated],
                                rtol=1e-5, atol=1e-5)
-    assert tm._feat_dev is None and tm._gram_items is None  # released
+    # released
+    assert tm._feat_dev is None and tm._factor is None
+    assert tm._gram_items is None
+
+
+def test_cer_factors_once_a_call(cold_fold, monkeypatch):
+    """d > n_items: each ``train`` call factors le·I + lv·F·Fᵀ once, in its
+    first E-solve, and releases the factor; two calls from the same tables
+    give the same tables, bitwise."""
+    tr, full = cold_fold
+    d = 128
+    calls = []
+    factor = tcer._woodbury_factor
+
+    def counted(G, lv, le):
+        calls.append(G.shape)
+        return factor(G, lv, le)
+
+    monkeypatch.setattr(tcer, "_woodbury_factor", counted)
+    m = CER(k=8, d=d, lv=10.0, le=100.0, seed=11, block_size=64,
+            device="cpu")
+    m.set_interactions(_port(tr))
+    m.set_features(_features(full, d))
+    U0, V0 = m.fue.copy(), m.fie.copy()
+    tables = []
+    for _ in range(2):
+        m.fue, m.fie, m.E = U0.copy(), V0.copy(), None
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            m.train(max_iter=3, tol=0.0, verbose=False)
+        assert m._factor is None and m._gram_items is None
+        tables.append((m.fue.copy(), m.fie.copy(), m.E.copy()))
+    assert calls == [(tr.n_items, tr.n_items)] * 2
+    for got, want in zip(tables[1], tables[0]):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_cer_final_e_interchange(cold_fold, tmp_path):
@@ -246,6 +283,10 @@ def _ridge_case(n_items=24, d=64, k=6, seed=5):
 @pytest.mark.parametrize("solver", ["direct", "woodbury_cg",
                                     "woodbury_direct"])
 def test_ridge_solves_equal_jax(solver):
+    """Each route of the port against JAX's. "woodbury_cg": the port's
+    solve on the Cholesky factor of le·I + lv·G, with A formed in G's
+    memory, against JAX's exact Woodbury solve and its CG (run to a
+    relative residual of 1e-6)."""
     lv, le = 10.0, 1e4
     F, Y = _ridge_case()
     Fj, Yj = jnp.asarray(F), jnp.asarray(Y)
@@ -254,13 +295,19 @@ def test_ridge_solves_equal_jax(solver):
         want = jcer._ridge_direct(Fj, Yj, lv, le)
         got = tcer._ridge_direct(Ft, Yt, lv, le)
     elif solver == "woodbury_cg":
-        want, want_rel = jcer._ridge_woodbury_cg(Fj, Fj @ Fj.T, Yj, lv, le,
-                                                 60)
-        got, rel, steps = tcer._ridge_woodbury_cg(Ft, Ft @ Ft.T, Yt, lv, le,
-                                                  60)
-        assert 0 < steps < 60 and rel <= 1e-6
-        np.testing.assert_allclose(rel, float(want_rel), rtol=0.5,
-                                   atol=1e-7)
+        want = jcer._ridge_woodbury_direct(Fj, Fj @ Fj.T, Yj, lv, le)
+        want_cg, want_rel = jcer._ridge_woodbury_cg(Fj, Fj @ Fj.T, Yj, lv,
+                                                    le, 60)
+        assert float(want_rel) <= 1e-6
+        G = Ft @ Ft.T
+        A = le * torch.eye(G.shape[0]) + lv * G
+        L, info = tcer._woodbury_factor(G, lv, le)
+        assert info == 0
+        torch.testing.assert_close(G, A)  # A took G's memory
+        torch.testing.assert_close(L @ L.T, A)
+        got = tcer._ridge_woodbury_factored(Ft, L, Yt, lv)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want_cg),
+                                   **SOLVE_TOL)
     else:
         want = jcer._ridge_woodbury_direct(Fj, Fj @ Fj.T, Yj, lv, le)
         got = tcer._ridge_woodbury_direct(Ft, Ft @ Ft.T, Yt, lv, le)
@@ -268,40 +315,41 @@ def test_ridge_solves_equal_jax(solver):
 
 
 def test_cer_e_solve_nonconvergence_falls_back():
-    """tests/test_models.py:382: a starved CG (tiny le, one step) warns and
-    solves the Woodbury system directly, for this feature set from then on;
-    ``set_features`` gives CG a fresh chance. A healthy le converges with no
+    """A Woodbury matrix with no Cholesky factor (le = -1e4 makes
+    le·I + lv·F·Fᵀ negative definite) warns and is solved by LU, as JAX's
+    exact route, for this feature set from then on; ``set_features``
+    gives the factor a fresh chance. A healthy le factors with no
     warning."""
     n_items, d, k = 24, 64, 6
     F, Y = _ridge_case(n_items, d, k)
-    model = CER(k=k, d=d, lv=10.0, le=1e-4, seed=1, device="cpu")
+    model = CER(k=k, d=d, lv=10.0, le=-1e4, seed=1, device="cpu")
     model.n_items = n_items
     model.set_features(F)
-    model.e_solver_iters = 1  # starve CG so it cannot converge
     Yt = torch.from_numpy(Y)
-    with pytest.warns(RuntimeWarning, match="did not converge"):
+    with pytest.warns(RuntimeWarning, match="no Cholesky factor"):
         E = model._solve_E(Yt).numpy()
     Fj = jnp.asarray(F)
     exact = np.asarray(jcer._ridge_woodbury_direct(
         Fj, Fj @ Fj.T, jnp.asarray(Y), model.lv, model.le))
-    np.testing.assert_allclose(E, exact, rtol=2e-3, atol=2e-5)
-    assert model._e_solver_use_direct
+    np.testing.assert_allclose(E, exact, **SOLVE_TOL)
+    assert model._e_solver_use_direct and model._factor is None
     with warnings.catch_warnings():
-        warnings.simplefilter("error")  # the verdict is cached: no CG
+        warnings.simplefilter("error")  # the verdict is cached: no factor
         np.testing.assert_array_equal(model._solve_E(Yt).numpy(), E)
     assert model.e_solver_steps == 0
 
     model.set_features(F)
     assert not model._e_solver_use_direct
+    assert model._factor is None and model._gram_items is None
     model.le = 1e4
-    model.e_solver_iters = 60
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         E2 = model._solve_E(Yt).numpy()
-    assert 0 < model.e_solver_steps < 60
+    assert model._factor is not None and model._gram_items is None
+    assert model.e_solver_steps == 0
     exact2 = np.asarray(jcer._ridge_direct(Fj, jnp.asarray(Y), model.lv,
                                            model.le))
-    np.testing.assert_allclose(E2, exact2, rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(E2, exact2, **SOLVE_TOL)
 
 
 def test_cer_needs_features():

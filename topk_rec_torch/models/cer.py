@@ -7,27 +7,35 @@ regression, E = (lv·FᵀF + le·I)⁻¹·lv·Fᵀ·V, and items nobody rated ta
 F·E as their factors after training (reference cer.py:24-73). Defaults
 mirror reference cer.py:17: lu = 0.01, lv = 10, le = 1e4, a = 1, b = 0.01.
 
-The E-solve takes JAX's routes (cer.py:159-207):
+The E-solve takes two routes (JAX's are cer.py:159-207):
 
 * d ≤ n_items: the d×d system directly (``torch.linalg.solve``);
 * d > n_items: the Woodbury form E = lv·Fᵀ·(le·I + lv·F·Fᵀ)⁻¹·V, an
-  n_items×n_items system, by conjugate gradients on the cached G = F·Fᵀ.
-  JAX's ``while_loop`` exit becomes a host check of max(rs/ys) > tol² before
-  each CG step (one sync per step, at most ``e_solver_iters``), so the port
-  takes as many steps as JAX. A worst relative residual above
-  ``e_solver_fallback_tol`` (or NaN) warns and solves the n×n system
-  directly, for this feature set from then on.
+  n_items×n_items system whose matrix A = le·I + lv·F·Fᵀ is fixed within a
+  ``train`` call. The first E-solve of a call forms A in the memory of
+  G = F·Fᵀ and factors it, A = L·Lᵀ (one host read of the factor's
+  ``info``); each E-solve is then two triangular solves on L and no host
+  read. JAX solves the same system by conjugate gradients to a relative
+  residual of 1e-6; the factor solves it exactly, up to float32 rounding.
+  An explicit A⁻¹ made from L, one product an E-solve, is faster on the
+  H100 but less exact: after 20 iterations at the MovieLens widths its V
+  lay 1.2-2.2e-4 from a float64 run, the solves' within 4e-6.
+  If A is not positive definite in float32 (``info`` > 0, e.g. le ≤ 0),
+  the E-solve warns and solves A by LU from G instead, for this feature
+  set from then on.
 
 F stays on the device for the whole ``train`` and is released afterwards,
-with G (about 1.2 GB at d = 20000 on the MovieLens catalog). Every product
-is true fp32, as JAX's ``HIGHEST``.
+with L (about 0.43 GB on the MovieLens catalog; while it is made, A and L
+take twice that). Every product, the factor and the solves are true fp32,
+as JAX's ``HIGHEST``.
 
 Spans (``tracing.py``): ``cer.features`` (F's upload), ``cer.iter`` (one
 iteration), ``cer.esolve`` (the E-solve) holding ``cer.gram`` (G, in the
-first), ``cer.cg_step`` (a CG step with the check after it) and
-``cer.esolve_direct`` (a direct Woodbury solve), ``cer.loss`` (the loss
-read) and ``cer.writeback`` (the tables' read and the cold-start
-write-back); the half-sweeps are ``WMF._sweeps``' ``als.half_sweep``.
+first) with ``cer.factor`` (A's Cholesky and the read of its ``info``)
+inside it, and ``cer.esolve_direct`` (an LU solve of the Woodbury system),
+``cer.loss`` (the loss read) and ``cer.writeback`` (the tables' read and
+the cold-start write-back); the half-sweeps are ``WMF._sweeps``'
+``als.half_sweep``.
 """
 
 from __future__ import annotations
@@ -55,47 +63,32 @@ def _ridge_direct(F: torch.Tensor, Y: torch.Tensor, lv: float,
     return torch.linalg.solve(FF, lv * (F.T @ Y))
 
 
-def _ridge_woodbury_cg(
-    F: torch.Tensor, G: torch.Tensor, Y: torch.Tensor, lv: float, le: float,
-    iters: int, tol: float = 1e-6,
-) -> Tuple[torch.Tensor, float, int]:
-    """E = lv·Fᵀ·(le·I_n + lv·G)⁻¹·Y by conjugate gradients, one column of
-    Y per system (cer.py:48-100).
+def _woodbury_factor(G: torch.Tensor, lv: float,
+                     le: float) -> Tuple[Optional[torch.Tensor], int]:
+    """(L, 0): the lower Cholesky factor of A = le·I_n + lv·G. A is formed
+    in G's memory and freed once L is made, so pass a G that nothing else
+    holds. (None, info) when A is not positive definite in G's precision
+    (info > 0: the order of the first leading minor that is not)."""
+    A = G.mul_(lv)
+    del G
+    A.diagonal().add_(le)
+    with span("cer.factor"):
+        L, info = torch.linalg.cholesky_ex(A)
+        info = int(info)
+        return (L if info == 0 else None), info
 
-    Returns (E, rel, steps): rel is the worst column's final
-    ‖residual‖/‖y‖ and steps the CG steps taken.
-    """
-    def matvec(X):
-        return le * X + lv * (G @ X)
 
-    X = torch.zeros_like(Y)
-    R = Y - matvec(X)
-    P = R
-    rs = (R * R).sum(0)
-    ys = torch.clamp((Y * Y).sum(0), min=1e-30)
-    steps = 0
-    more = iters > 0 and float((rs / ys).max()) > tol * tol
-    while more:
-        # a step and the host check that decides the next one
-        with span("cer.cg_step"):
-            AP = matvec(P)
-            alpha = rs / torch.clamp((P * AP).sum(0), min=1e-30)
-            X = X + alpha[None, :] * P
-            R = R - alpha[None, :] * AP
-            rs_new = (R * R).sum(0)
-            beta = rs_new / torch.clamp(rs, min=1e-30)
-            P = R + beta[None, :] * P
-            rs = rs_new
-            steps += 1
-            more = steps < iters and float((rs / ys).max()) > tol * tol
-    rel = float(torch.sqrt((rs / ys).max()))
-    return lv * (F.T @ X), rel, steps
+def _ridge_woodbury_factored(F: torch.Tensor, L: torch.Tensor,
+                             Y: torch.Tensor, lv: float) -> torch.Tensor:
+    """E = lv·Fᵀ·(L·Lᵀ)⁻¹·Y: the Woodbury form on the factor of
+    ``_woodbury_factor``, two triangular solves."""
+    return lv * (F.T @ torch.cholesky_solve(Y, L))
 
 
 def _ridge_woodbury_direct(F: torch.Tensor, G: torch.Tensor, Y: torch.Tensor,
                            lv: float, le: float) -> torch.Tensor:
-    """The Woodbury form solved directly (cer.py:103-115): the fallback
-    when CG does not converge."""
+    """The Woodbury form solved by LU (cer.py:103-115): the fallback when
+    le·I + lv·G has no Cholesky factor."""
     with span("cer.esolve_direct"):
         n = G.shape[0]
         A = le * torch.eye(n, dtype=G.dtype, device=G.device) + lv * G
@@ -123,20 +116,21 @@ class CER(WMF):
         self.le = le
         self.E: Optional[np.ndarray] = None
         self._feat_dev: Optional[torch.Tensor] = None    # F on the device
-        self._gram_items: Optional[torch.Tensor] = None  # F·Fᵀ (Woodbury)
-        self.e_solver_iters = 60
-        # CG exit threshold, and the bar above which the E-solve warns and
-        # solves directly
-        self.e_solver_tol = 1e-6
-        self.e_solver_fallback_tol = 1e-3
-        self.e_solver_steps = 0  # CG steps of the last E-solve
-        self._e_solver_use_direct = False
+        # the Woodbury route's matrix for the call: the Cholesky factor of
+        # le·I + lv·F·Fᵀ, or F·Fᵀ itself once the factor has failed
+        self._factor: Optional[torch.Tensor] = None
+        self._gram_items: Optional[torch.Tensor] = None
+        # CG steps of the last E-solve: 0, as no route iterates (kept, with
+        # the verdict below, for readers of the E-solve such as portbench)
+        self.e_solver_steps = 0
+        self._e_solver_use_direct = False  # the factor failed for this F
 
     def set_features(self, feat: np.ndarray) -> None:
         super().set_features(feat)
         self._feat_dev = None
+        self._factor = None
         self._gram_items = None
-        self._e_solver_use_direct = False  # new F: give CG a fresh shot
+        self._e_solver_use_direct = False  # new F: factor it afresh
 
     def _feat_device(self) -> torch.Tensor:
         if self._feat_dev is None:
@@ -144,38 +138,40 @@ class CER(WMF):
                 self._feat_dev = torch.from_numpy(self.feat).to(self.device)
         return self._feat_dev
 
+    def _woodbury_system(self, F: torch.Tensor) -> None:
+        """The first E-solve's work on the Woodbury route: G = F·Fᵀ, then
+        the Cholesky factor of le·I + lv·G, or G kept for LU if the factor
+        fails (warned once, and kept for this feature set)."""
+        with span("cer.gram"):
+            if self._e_solver_use_direct:
+                self._gram_items = F @ F.T
+                return
+            # G is passed unheld: A takes its memory, and is freed once L
+            # is made
+            self._factor, info = _woodbury_factor(F @ F.T, self.lv, self.le)
+            if info == 0:
+                return
+            warnings.warn(
+                f"CER E-solve: le·I + lv·F·Fᵀ has no Cholesky factor in "
+                f"float32 (its leading minor of order {info} is not "
+                f"positive definite; le={self.le:g}, lv={self.lv:g}) — "
+                f"solving it by LU instead (slower) for the rest of this "
+                f"feature set. set_features resets the verdict.",
+                RuntimeWarning, stacklevel=3)
+            self._e_solver_use_direct = True
+            self._gram_items = F @ F.T
+
     def _solve_E(self, Y: torch.Tensor) -> torch.Tensor:
         with span("cer.esolve"):
             F = self._feat_device()
-            self.e_solver_steps = 0
             if self.d <= self.n_items:
                 return _ridge_direct(F, Y, self.lv, self.le)
-            if self._gram_items is None:
-                with span("cer.gram"):
-                    self._gram_items = F @ F.T
-            G = self._gram_items
-            # once CG has failed for this (le, lv, F), it fails every
-            # iteration
-            if self._e_solver_use_direct:
-                return _ridge_woodbury_direct(F, G, Y, self.lv, self.le)
-            E, rel, self.e_solver_steps = _ridge_woodbury_cg(
-                F, G, Y, self.lv, self.le, self.e_solver_iters,
-                tol=self.e_solver_tol)
-            # NaN-safe: `NaN <= tol` is False, so a diverged CG falls back too
-            if not (rel <= self.e_solver_fallback_tol):
-                warnings.warn(
-                    f"CER E-solve: Woodbury-CG did not converge in "
-                    f"{self.e_solver_iters} iterations (relative residual "
-                    f"{rel:.2e} > {self.e_solver_fallback_tol:.0e}; "
-                    f"le={self.le:g} may be too small for the CG budget) — "
-                    f"falling back to the exact direct solve (slower) for "
-                    f"the rest of this feature set. To retry the fast path "
-                    f"after raising model.e_solver_iters, call set_features "
-                    f"again (it resets the verdict).",
-                    RuntimeWarning, stacklevel=2)
-                self._e_solver_use_direct = True
-                return _ridge_woodbury_direct(F, G, Y, self.lv, self.le)
-            return E
+            if self._factor is None and self._gram_items is None:
+                self._woodbury_system(F)
+            if self._factor is not None:
+                return _ridge_woodbury_factored(F, self._factor, Y, self.lv)
+            return _ridge_woodbury_direct(F, self._gram_items, Y, self.lv,
+                                          self.le)
 
     def train(
         self,
@@ -232,6 +228,7 @@ class CER(WMF):
                                    self.inter.rated_items)
             self.fie[unrated] = Fe[unrated]
         self._feat_dev = None
+        self._factor = None
         self._gram_items = None
 
     # ---- model-specific interchange: final-E.dat (ref cer.py:75-85) ----
